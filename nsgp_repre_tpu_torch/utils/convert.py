@@ -1,0 +1,75 @@
+"""The weight bridge from the JAX package's checkpoints to the port.
+
+The port's module names follow mmdet's state-dict names, so a reference
+``.pth`` loads with ``load_state_dict``. A JAX checkpoint is a pair of
+flat numpy dicts keyed like nsgp_repre_tpu/utils/checkpoint.py::
+_flatten_tree (``backbone/layer1_0/conv1/kernel``, HWIO kernels, (in,
+out) dense kernels). ``state_dict_from_jax`` maps those onto the port's
+state dict; it is the exact inverse of
+nsgp_repre_tpu/utils/torch_convert.py::convert_detector_state_dict.
+"""
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+_BBOX = "roi_head.bbox_head"
+
+# (JAX module path pattern, port module name template); first match wins
+_MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
+    (r"backbone/layer(\d+)_(\d+)/downsample_conv",
+     lambda m, _: f"backbone.layer{m[1]}.{m[2]}.downsample.0"),
+    (r"backbone/layer(\d+)_(\d+)/downsample_bn",
+     lambda m, _: f"backbone.layer{m[1]}.{m[2]}.downsample.1"),
+    (r"backbone/layer(\d+)_(\d+)/(conv\d|bn\d)",
+     lambda m, _: f"backbone.layer{m[1]}.{m[2]}.{m[3]}"),
+    (r"backbone/(conv1|bn1)", lambda m, _: f"backbone.{m[1]}"),
+    (r"neck/lateral_conv(\d+)", lambda m, _: f"neck.lateral_convs.{m[1]}.conv"),
+    (r"neck/fpn_conv(\d+)", lambda m, _: f"neck.fpn_convs.{m[1]}.conv"),
+    (r"rpn_head/(rpn_conv|rpn_cls|rpn_reg)", lambda m, _: f"rpn_head.{m[1]}"),
+    (r"bbox_head/shared_fc(\d+)", lambda m, _: f"{_BBOX}.shared_fcs.{int(m[1]) - 1}"),
+    (r"bbox_head/fc_cls(\d+)", lambda m, _: f"{_BBOX}.fc_cls.{m[1]}"),
+    # the reference appends the background classifier after the T
+    # per-task heads (convfc_bbox_head_task.py:94-107)
+    (r"bbox_head/fc_cls_bg", lambda m, n_tasks: f"{_BBOX}.fc_cls.{n_tasks}"),
+    (r"bbox_head/fc_reg(\d+)", lambda m, _: f"{_BBOX}.fc_reg.{m[1]}"),
+]
+
+_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _module_name(path: str, n_tasks: int) -> str:
+    for pattern, name in _MODULES:
+        m = re.fullmatch(pattern, path)
+        if m:
+            return name(m, n_tasks)
+    raise KeyError(f"no port module for JAX path {path!r}")
+
+
+def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return arr
+    if arr.ndim == 4:  # (H, W, I, O) → (O, I, H, W)
+        return np.transpose(arr, (3, 2, 0, 1))
+    return np.transpose(arr, (1, 0))  # (in, out) → (out, in)
+
+
+def state_dict_from_jax(
+    params_flat: Dict[str, np.ndarray], stats_flat: Dict[str, np.ndarray]
+) -> Dict[str, torch.Tensor]:
+    """Flat JAX params and batch stats → the port's (mmdet-named) state dict."""
+    n_tasks = sum(bool(re.fullmatch(r"bbox_head/fc_cls\d+/kernel", k)) for k in params_flat)
+    out: Dict[str, torch.Tensor] = {}
+    for flat, leaves in ((params_flat, _PARAM_LEAVES), (stats_flat, _STAT_LEAVES)):
+        for key, arr in flat.items():
+            path, leaf = key.rsplit("/", 1)
+            if leaf not in leaves:
+                raise KeyError(f"unknown leaf {leaf!r} in {key!r}")
+            name = f"{_module_name(path, n_tasks)}.{leaves[leaf]}"
+            arr = _to_torch_layout(leaf, np.asarray(arr, dtype=np.float32))
+            out[name] = torch.tensor(arr).contiguous()
+    return out

@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports no JAX, so it also runs on a host without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX for the other tests).
+Tolerances are those of chip_smoke.py: f32 within 1e-4 (convs) or 1e-5
+(RoIAlign) of the largest magnitude, bf16 within a couple of bf16 ulps
+of it, NMS keep lists identical.
+"""
+import numpy as np
+import pytest
+import torch
+
+from nsgp_repre_tpu_torch.ops import _ext, nms, nms_cuda, roi_align, roi_align_cuda
+from nsgp_repre_tpu_torch.ops import rpn_head_cuda as rh
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, dt, f32_rel=1e-4):
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().item()
+    tol = f32_rel * max(1.0, scale) if dt == torch.float32 else 2 ** -6 * scale
+    err = (got - ref).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,F,relu", [((1, 37, 53, 64), 128, True),
+                                          ((2, 19, 32, 256), 256, False),
+                                          ((1, 1, 3, 32), 128, False)])
+def test_conv3x3_kernel(dev, dt, shape, F, relu):
+    g = torch.Generator().manual_seed(0)
+    C = shape[-1]
+    x = torch.randn(*shape, generator=g).to(dev, dt)
+    w = (torch.randn(3, 3, C, F, generator=g) / (9 * C) ** 0.5).to(dev)
+    b = (torch.randn(F, generator=g) * 0.1).to(dev)
+    before = _ext.LAUNCHES["conv3x3"]
+    got = rh.conv3x3(x, w, b, relu=relu)
+    assert _ext.LAUNCHES["conv3x3"] == before + 1
+    _close(got, rh.conv3x3_plain(x, w, b, relu), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 38, 64, 256), (3, 5, 7, 256)])
+def test_rpn_head_kernel(dev, dt, shape):
+    g = torch.Generator().manual_seed(1)
+    C = shape[-1]
+    x = torch.randn(*shape, generator=g).to(dev, dt)
+    w = (torch.randn(3, 3, C, 256, generator=g) / (9 * C) ** 0.5).to(dev)
+    b = (torch.randn(256, generator=g) * 0.1).to(dev)
+    wcr = (torch.randn(256, 15, generator=g) / 16).to(dev)
+    bcr = (torch.randn(15, generator=g) * 0.1).to(dev)
+    got = rh.rpn_head(x, w, b, wcr, bcr)
+    assert got.shape == shape[:3] + (15,)
+    _close(got, rh.rpn_head_plain(x, w, b, wcr, bcr), dt)
+
+
+def test_conv_wrapper_rejects_unsupported_shapes(dev):
+    x = torch.zeros(1, 4, 4, 24, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 32"):
+        rh.conv3x3(x, torch.zeros(3, 3, 24, 128, device=dev), torch.zeros(128, device=dev))
+
+
+def _nms_inputs(seed, B, N, ties):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(B, N, 2, generator=g) * 300
+    wh = torch.rand(B, N, 2, generator=g) * 80 + 4
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.rand(B, N, generator=g)
+    if ties:
+        scores = (scores * 8).round() / 8
+        boxes[:, 1::5] = boxes[:, ::5][:, : boxes[:, 1::5].shape[1]]
+    valid = torch.rand(B, N, generator=g) > 0.2
+    idxs = torch.randint(0, 5, (B, N), generator=g, dtype=torch.int32)
+    return boxes, scores, valid, idxs
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("B,N,max_out", [(1, 8304, 1000), (3, 700, 50), (2, 65, 200)])
+def test_nms_kernel(dev, ties, B, N, max_out):
+    boxes, scores, valid, idxs = (t.to(dev) for t in _nms_inputs(B + N, B, N, ties))
+    valid[-1] = False  # an image without candidates
+    ki, kv = nms_cuda.batched_nms(boxes, scores, idxs, valid, 0.6, max_out)
+    pi, pv = nms.batched_nms(boxes, scores, idxs, valid, 0.6, max_out)
+    assert torch.equal(kv, pv)
+    assert torch.equal(ki, pi)  # valid slots and the zeros of unused ones
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_roi_align_kernel(dev, dt):
+    g = torch.Generator().manual_seed(2)
+    B, C, H, W = 2, 256, 160, 224
+    feats = [torch.randn(B, H // s, W // s, C, generator=g).to(dev, dt) for s in (4, 8, 16, 32)]
+    R = 300
+    xy = torch.rand(R, 2, generator=g) * torch.tensor([W, H]) - 10
+    side = torch.exp(torch.rand(R, 2, generator=g) * 4.5 + 2)
+    rois = torch.cat([xy, xy + side], -1).to(dev)
+    bidx = torch.randint(0, B, (R,), generator=g, dtype=torch.int32).to(dev)
+    got = roi_align_cuda.multilevel_roi_align(feats, rois, bidx)
+    ref = roi_align.multilevel_roi_align(feats, rois, bidx).to(dt)
+    assert got.dtype == dt and got.shape == (R, 7, 7, C)
+    if dt == torch.float32:
+        _close(got, ref, dt, f32_rel=1e-5)
+    else:
+        assert (got.float() - ref.float()).abs().max().item() <= 2 ** -7 * ref.float().abs().max().item()
+
+
+def test_small_predict_card_matches_cpu(dev):
+    """A one-block-per-stage detector in f32: the card (kernels) and the
+    CPU (plain versions) give the same detections."""
+    from nsgp_repre_tpu_torch.engine.train import make_eval_step
+    from nsgp_repre_tpu_torch.models.detector import DetectorConfig, FasterRCNN
+    from nsgp_repre_tpu_torch.structures.sample import DetBatch, InstanceArray
+
+    cfg = DetectorConfig(num_classes=6, task_split=(0, 4, 6), backbone_blocks=(1, 1, 1, 1),
+                         rpn_nms_pre=256, rpn_max_per_img=96, max_per_img=24)
+    cpu = FasterRCNN(cfg).init_weights(torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        for fc in cpu.bbox_head.fc_cls:
+            fc.weight.mul_(5.0)
+    card = FasterRCNN(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randint(0, 255, (1, 64, 96, 3)).astype(np.uint8))
+
+    def batch(d):
+        return DetBatch(images=img.to(d), img_shape=torch.tensor([[64, 96]], device=d),
+                        ori_shape=torch.tensor([[64, 96]], device=d),
+                        scale_factor=torch.ones(1, 2, device=d),
+                        gt=InstanceArray(boxes=torch.zeros(1, 1, 4, device=d),
+                                         labels=torch.full((1, 1), -1, device=d),
+                                         valid=torch.zeros(1, 1, dtype=torch.bool, device=d)))
+
+    _ext.reset_launches()
+    got = make_eval_step(card)(batch(dev))
+    assert dict(_ext.LAUNCHES) == {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1}
+    ref = make_eval_step(cpu)(batch("cpu"))
+    gv, rv = got.valid[0].cpu(), ref.valid[0]
+    assert int(gv.sum()) == int(rv.sum()) > 0
+    assert torch.equal(got.labels[0].cpu()[gv], ref.labels[0][rv])
+    torch.testing.assert_close(got.scores[0].cpu()[gv], ref.scores[0][rv], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got.boxes[0].cpu()[gv], ref.boxes[0][rv], rtol=1e-3, atol=5e-2)
