@@ -15,9 +15,19 @@ Phases, each of which raises on a failed check (exit code 1):
    and the least time the card could take for the same work;
 4. slice: full-width Faster R-CNN R-50-FPN (15+5 VOC config, task 1) built
    by ``init_detector`` with seeded weights and driven by
-   ``inference_detector``: bf16 at batch 1 (every kernel must launch) and
-   at batch 16, the batch-1 f32 result on the card against the same
-   weights on the CPU through the plain versions, latency and throughput.
+   ``inference_detector``: bf16 at batch 1 (every predict kernel must
+   launch) and at batch 16, the batch-1 f32 result on the card against
+   the same weights on the CPU through the plain versions, latency and
+   throughput;
+5. training kernels: the anchor assignment and the RoIAlign backward
+   against their plain versions at the batch-16 training shapes;
+6. train: the same model and weights trained by ``make_train_step`` with
+   the optimizer ``build_train_optimizer`` builds from the config (bf16,
+   batch 16, seeded images and boxes): every training kernel launches
+   once per step, losses stay finite, frozen parameters stay bit-equal
+   and trainable ones move; the f32 batch-1 loss terms and gradients on
+   the card against the CPU; step time, img/s, peak memory, one profiled
+   step.
 
 The last lines are the card line, one JSON object listing the kernels,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -52,18 +62,34 @@ REPLACES = {
     "rpn_head": "nsgp_repre_tpu/ops/rpn_head_pallas.py:141",
     "nms": "nsgp_repre_tpu/ops/nms_pallas.py:32",
     "roi_align": "nsgp_repre_tpu/ops/roi_align_pallas.py:305",
+    "roi_align_bwd": "nsgp_repre_tpu/ops/roi_align_pallas.py:600",
+    "assign": "nsgp_repre_tpu/ops/assign_pallas.py:44",
 }
 SOURCES = {
     "conv3x3": "nsgp_repre_tpu_torch/csrc/conv3x3.cu",
     "rpn_head": "nsgp_repre_tpu_torch/csrc/conv3x3.cu",
     "nms": "nsgp_repre_tpu_torch/csrc/nms.cu",
     "roi_align": "nsgp_repre_tpu_torch/csrc/roi_align.cu",
+    "roi_align_bwd": "nsgp_repre_tpu_torch/csrc/roi_align.cu",
+    "assign": "nsgp_repre_tpu_torch/csrc/assign.cu",
 }
+KERNELS = ("conv3x3", "rpn_head", "nms", "roi_align", "roi_align_bwd", "assign")
 # launches of each kernel in one predict: batch 1 runs the fused FPN
 # convs (P2-P5) and the fused RPN head (P2-P6); every batch runs
 # proposal + multiclass NMS and one RoIAlign
-EXPECTED_B1 = {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1}
-EXPECTED_B16 = {"conv3x3": 0, "rpn_head": 0, "nms": 2, "roi_align": 1}
+EXPECTED_B1 = {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1, "roi_align_bwd": 0,
+               "assign": 0}
+EXPECTED_B16 = {"conv3x3": 0, "rpn_head": 0, "nms": 2, "roi_align": 1, "roi_align_bwd": 0,
+                "assign": 0}
+# launches in one train step (sparse RPN loss, any batch): the forward-only
+# RPN head on P2-P6, the anchor assignment, proposal NMS, and RoIAlign
+# forward and backward once each
+EXPECTED_TRAIN = {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 1, "roi_align_bwd": 1,
+                  "assign": 1}
+TRAIN_BATCH = 16  # _base_/datasets/voc_task_base.py:11
+GT_CAPACITY = 64  # nsgp_repre_tpu/engine/runner.py:252
+STEPS_PER_EPOCH = 1000  # read only by the MultiStepLR milestones (epochs 8, 11)
+IOU_FLOPS = 13  # one IoU: 4 min/max, 2 sub, 2 clamps, 1 mul, 2 add/sub, 1 max, 1 div
 
 
 def log(obj) -> None:
@@ -391,34 +417,33 @@ def check_detections(name, dets, n_images, num_active=15):
     return total
 
 
-def profile_predict(torch, det, imgs, label: str) -> None:
-    """Device time by kernel over one predict (torch.profiler), the sum of
-    device time against the host-clock wall time, and the idle share."""
-    from nsgp_repre_tpu_torch.apis.inference import inference_detector
+def profile_call(torch, fn, label: str) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), the
+    sum of device time against the host-clock wall time, and the idle
+    share. A profile without device time fails the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            inference_detector(det, imgs)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        from torch.autograd import DeviceType
-
-        rows = []  # device-side events only (kernels, copies), so nothing counts twice
-        for e in prof.key_averages():
-            d = getattr(e, "self_device_time_total", 0) or 0
-            if e.device_type == DeviceType.CUDA and d > 0 and not e.key.startswith("Activity"):
-                rows.append((d / 1e3, e.count, e.key[:80]))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        log({"phase": f"profile {label}", "wall_ms": wall, "device_ms": busy,
-             "idle_share": 1 - busy / wall if wall else None,
-             "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:15]]})
-    except Exception as e:  # noqa: BLE001 — the breakdown is informational
-        log({"phase": f"profile {label}", "unavailable": f"{type(e).__name__}: {e}"})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []  # device-side events only (kernels, copies), so nothing counts twice
+    for e in prof.key_averages():
+        d = getattr(e, "self_device_time_total", 0) or 0
+        # a user annotation (the optimizer's record_function scope) spans
+        # kernels that are counted on their own
+        span = getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer.")
+        if e.device_type == DeviceType.CUDA and d > 0 and not span \
+                and not e.key.startswith("Activity"):
+            rows.append((d / 1e3, e.count, e.key[:80]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    check(f"profile {label}", busy > 0, "no device time recorded")
+    log({"phase": f"profile {label}", "wall_ms": wall, "device_ms": busy,
+         "idle_share": 1 - busy / wall,
+         "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:15]]})
 
 
 def slice_phase(torch, card: str):
@@ -502,9 +527,289 @@ def slice_phase(torch, card: str):
          "batch1_latency_ms_median": statistics.median(lat), "batch1_latency_ms_all": lat,
          "batch16_img_per_s_median": statistics.median(thr), "batch16_img_per_s_all": thr,
          "measured": "host clock around inference_detector (pack, H2D, predict, D2H)"})
-    profile_predict(torch, det16, imgs[0], "bf16 batch 1")
-    profile_predict(torch, det16, imgs, "bf16 batch 16")
-    return launches_b1
+    profile_call(torch, lambda: inference_detector(det16, imgs[0]), "predict bf16 batch 1")
+    profile_call(torch, lambda: inference_detector(det16, imgs), "predict bf16 batch 16")
+    return launches_b1, state
+
+
+# ---------------------------------------------------------------------------
+# training kernels, at the batch-16 training shapes
+# ---------------------------------------------------------------------------
+
+def train_kernel_phase(torch, dev):
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.ops import _ext, assign_cuda, roi_align, roi_align_cuda
+    from nsgp_repre_tpu_torch.ops.anchors import AnchorGenerator
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    shapes = level_shapes()
+    results = {}
+    B, G = TRAIN_BATCH, GT_CAPACITY
+
+    # ---- assign: the anchors of the 608x1024 canvas, 1-8 valid gts per image ----
+    anchors = torch.from_numpy(np.concatenate(AnchorGenerator().grid_anchors(shapes))).to(dev)
+    N = anchors.shape[0]
+    check("anchors", N == 155_520, N)
+    n_valid = torch.arange(B) % 8 + 1
+    gt_valid = (torch.arange(G)[None] < n_valid[:, None]).to(dev)
+    prior_valid = (torch.rand(B, N, generator=g) > 0.02).to(dev)
+    gt = proposal_like_boxes(torch, g, B * G).reshape(B, G, 4).to(dev)
+    tied = gt.clone()
+    tied[:, 1] = tied[:, 0]  # a duplicated gt: argmax and claim ties
+    tied[:, 2] = anchors[5000:5000 + B]  # a gt equal to an anchor (IoU exactly 1)
+    thr = (0.7, 0.3, 0.3)
+    assign_err = 0.0  # assigned and max_overlaps must be exact; the targets' error
+    for case, boxes in (("random", gt), ("ties", tied)):
+        got = assign_cuda.rpn_assign_targets(anchors, boxes, gt_valid, prior_valid, *thr)
+        ref = assign_cuda.rpn_assign_targets_plain(anchors, boxes, gt_valid, prior_valid, *thr)
+        torch.cuda.synchronize()
+        same_assigned = torch.equal(got[0], ref[0])
+        same_iou = torch.equal(got[1], ref[1])
+        tgt_err = (got[2] - ref[2]).abs().max().item()
+        tgt_scale = max(1.0, ref[2].abs().max().item())
+        assign_err = max(assign_err, tgt_err)
+        log(dict(kernel="assign", case=case, positives=int((got[0] >= 0).sum()),
+                 identical_assigned=same_assigned, bit_equal_max_overlaps=same_iou,
+                 tgt_max_abs_err=tgt_err))
+        check(f"assign {case}", same_assigned and same_iou,
+              "assigned or max_overlaps differ from the plain version")
+        # the targets: the same f32 operations; logf may round an ulp apart
+        check(f"assign {case} targets", tgt_err <= 1e-5 * tgt_scale,
+              f"tgt max_abs_err {tgt_err} > 1e-5 * max(1, max|plain|)")
+    # the work this data needs: the kernel skips padded gt slots
+    V = int(n_valid.sum())
+    flops = V * N * (2 * IOU_FLOPS + 3) + B * N * 16
+    nbytes = N * 16 + B * G * 17 + B * N * 1 + B * N * (4 + 4 + 16)
+    bms, bby = bound(nbytes, flops, "float32")
+    args = (anchors, gt, gt_valid, prior_valid, *thr)
+    results[("assign", "float32")] = dict(
+        kernel="assign", dtype="float32", launches_per_step=1,
+        kernel_ms=time_ms(torch, lambda: assign_cuda.rpn_assign_targets(*args), 20),
+        plain_ms=time_ms(torch, lambda: assign_cuda.rpn_assign_targets_plain(*args), 3),
+        library_ms=None, max_abs_err=assign_err,
+        tol="identical assigned, bit-equal max_overlaps, tgt within 1e-5 * max(1, max|plain|)",
+        bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops, valid_gts=V,
+        flops_if_padded_slots_counted=B * G * N * (2 * IOU_FLOPS + 3) + B * N * 16)
+    log(results[("assign", "float32")])
+
+    # ---- roi_align_bwd: 512 sampled RoIs per image over P2-P5 of 16 images ----
+    R = 512 * B
+    rois = proposal_like_boxes(torch, g, R).to(dev)
+    bidx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(512)
+    level_hw = shapes[:4]
+    rows = B * sum(h * w for h, w in level_hw)
+    g32 = torch.randn(R, 7, 7, C, generator=g)
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        size = 2 if dt == torch.bfloat16 else 4
+        gout = g32.to(dev, dt)
+
+        def kernel(gout=gout, dt=dt):
+            return roi_align_cuda.multilevel_roi_align_backward(
+                gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4])
+
+        def plain(gout=gout, dt=dt):
+            return roi_align.multilevel_roi_align_backward(
+                gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4])
+
+        got, ref = kernel(), plain()
+        again = kernel()
+        torch.cuda.synchronize()
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+        scale = max(y.float().abs().max().item() for y in ref)
+        rerun = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, again))
+        if dt == torch.float32:
+            # f32 sums of the same tap products; the atomics add them in
+            # another order, which also differs from run to run
+            tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
+        else:
+            # one bf16 rounding of f32 sums that differ in order only
+            tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
+        check(f"roi_align_bwd {dt_name}", err <= tol, f"max_abs_err {err} > {tol_desc}")
+        flops = R * 49 * 4 * 4 * 2 * C + R * 49 * C
+        nbytes = R * 49 * C * size + R * 16 + R * 4 + rows * C * size
+        bms, bby = bound(nbytes, flops, dt_name)
+        results[("roi_align_bwd", dt_name)] = dict(
+            kernel="roi_align_bwd", dtype=dt_name, launches_per_step=1,
+            kernel_ms=time_ms(torch, kernel, 10), plain_ms=time_ms(torch, plain, 2, warmup=1),
+            library_ms=None, max_abs_err=err, tol=tol_desc, run_to_run_max_abs_diff=rerun,
+            bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops, level_grad_rows=rows)
+        log(results[("roi_align_bwd", dt_name)])
+    _ext.reset_launches()  # comparison launches are not main-path launches
+    return results
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+def capture_hidden(torch, model):
+    """Record, on the host, the sparse RPN head's pre-ReLU hidden values
+    (M, F) at the sampled positions as ``at_positions`` computes them; the
+    method is wrapped on this instance until its attribute is deleted."""
+    head, store = model.rpn_head, []
+
+    def at_positions(patches, _orig=head.at_positions):
+        with torch.no_grad():
+            k = head.rpn_conv.weight.to(patches.dtype).permute(2, 3, 1, 0)
+            h = patches.reshape(patches.shape[0], -1) @ k.reshape(-1, k.shape[-1])
+            store.append((h + head.rpn_conv.bias.to(patches.dtype)).float().cpu())
+        return _orig(patches)
+
+    head.at_positions = at_positions
+    return store
+
+
+def train_phase(torch, card: str, state):
+    import copy
+
+    from nsgp_repre_tpu_torch.apis.inference import init_detector
+    from nsgp_repre_tpu_torch.engine.runner import build_train_optimizer
+    from nsgp_repre_tpu_torch.engine.train import TrainState, make_train_step
+    from nsgp_repre_tpu_torch.ops import _ext
+    from nsgp_repre_tpu_torch.testing import demo_det_batch, split_loss_and_grads
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    cfg16 = load_config(CONFIG)
+    model = init_detector(cfg16, device="cuda", seed=SEED).model
+    model.load_state_dict(state)
+    batch = demo_det_batch(TRAIN_BATCH, *CANVAS, num_instances=tuple(range(1, 9)),
+                           num_classes=15, gt_capacity=GT_CAPACITY, seed=SEED, device="cuda")
+    opt = build_train_optimizer(cfg16, model, STEPS_PER_EPOCH)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    check("trainable mask", 0 < len(trainable) < len(before), f"{len(trainable)} of {len(before)}")
+    step = make_train_step(model, opt)
+    st = TrainState(opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def finite(metrics, label):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).item()]
+        check(f"train {label}", not bad, f"non-finite {bad}")
+
+    for i in range(2):  # warm-up: allocator, cuDNN plans
+        st, metrics = step(st, batch, gen)
+        finite(metrics, f"warm-up step {i}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, launches = [], [], None
+    for i in range(10):
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        st, metrics = step(st, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        step_launches = dict(_ext.LAUNCHES)
+        check(f"train step {i} launches", step_launches == EXPECTED_TRAIN,
+              f"{step_launches} != {EXPECTED_TRAIN}")
+        launches = step_launches
+        finite(metrics, f"step {i}")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated()
+    frozen_moved = [n for n in before if n not in trainable
+                    and not torch.equal(before[n], model.get_parameter(n).detach())]
+    still = [n for n in trainable if torch.equal(before[n], model.get_parameter(n).detach())]
+    check("frozen parameters", not frozen_moved, f"moved: {frozen_moved[:5]}")
+    check("trainable parameters", not still, f"did not move: {still[:5]}")
+    med = statistics.median(times)
+    log({"phase": "train bf16 batch 16", "card": card, "launches_per_step": launches,
+         "step_ms_median": med, "step_ms_all": times, "img_per_s": TRAIN_BATCH / med * 1e3,
+         "max_memory_allocated_bytes": peak, "steps_taken": st.step,
+         "lr_last": float(opt.lr()), "losses_first": losses[0], "losses_last": losses[-1],
+         "frozen_params": len(before) - len(trainable), "trainable_params": len(trainable),
+         "measured": "host clock around make_train_step's step, ending in torch.cuda.synchronize"})
+    profile_call(torch, lambda: step(st, batch, gen), "train bf16 batch 16 (one step)")
+    del model, opt, st, step
+    torch.cuda.empty_cache()
+
+    # ---- f32, batch 1: card (kernels) against CPU (plain versions) ----
+    cfg32 = copy.deepcopy(cfg16)
+    cfg32["compute_dtype"] = "float32"
+    on_card = init_detector(cfg32, device="cuda", seed=SEED).model
+    on_card.load_state_dict(state)
+    on_cpu = init_detector(cfg32, device="cpu", seed=SEED).model
+    on_cpu.load_state_dict(state)
+    b1 = demo_det_batch(1, *CANVAS, num_instances=(6,), num_classes=15, gt_capacity=GT_CAPACITY,
+                        seed=SEED + 3)
+    n_anchors = sum(h * w * A for h, w in level_shapes())
+    pg = torch.Generator().manual_seed(SEED + 4)
+    n_cand = GT_CAPACITY + on_card.config.rpn_max_per_img
+    pri = {"rpn": torch.rand(1, n_anchors, generator=pg), "roi": torch.rand(1, n_cand, generator=pg),
+           "roi2": torch.rand(1, n_cand, generator=pg)}
+    hidden_card, hidden_cpu = capture_hidden(torch, on_card), capture_hidden(torch, on_cpu)
+    _ext.reset_launches()
+    got_l, got_g, props = split_loss_and_grads(on_card, b1, pri)
+    torch.cuda.synchronize()
+    f32_launches = dict(_ext.LAUNCHES)
+    t0 = time.perf_counter()
+    ref_l, ref_g, _ = split_loss_and_grads(on_cpu, b1, pri, proposals=props)
+    cpu_s = time.perf_counter() - t0
+    del on_card.rpn_head.at_positions, on_cpu.rpn_head.at_positions
+    # the sparse RPN head's ReLUs that the two devices decide differently:
+    # the same sampled positions on both sides (same priorities, assign
+    # identical), so the pre-ReLU values compare element by element
+    hc, hp = hidden_card[0], hidden_cpu[0]
+    check("sparse-head positions", hc.shape == hp.shape, f"{tuple(hc.shape)} != {tuple(hp.shape)}")
+    flipped = (hc > 0) != (hp > 0)
+    flips = int(flipped.sum())
+    relu_witness = {"hidden_values": hp.numel(), "relu_flips": flips,
+                    "min_abs_hidden_cpu": hp.abs().min().item(),
+                    "max_abs_hidden_cpu": hp.abs().max().item(),
+                    "flipped_card": hc[flipped][:8].tolist(), "flipped_cpu": hp[flipped][:8].tolist()}
+    check("f32 launches", all(f32_launches[k] == EXPECTED_TRAIN[k]
+                              for k in ("assign", "roi_align", "roi_align_bwd")), f32_launches)
+
+    def grad_rel(a, b):
+        return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-12)
+                for k in b}
+
+    # the f32 noise floor of these gradients: the CPU run again with every
+    # weight scaled by (1 + 1e-7 N(0, 1)), about an ulp; through the 16
+    # blocks of the trunk this alone moves layer2's gradients by ~2%
+    gen = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for p in on_cpu.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    _, noisy_g, _ = split_loss_and_grads(on_cpu, b1, pri, proposals=props)
+    group = lambda k: ".".join(k.split(".")[:2])
+    floor = {}
+    for k, v in grad_rel(noisy_g, ref_g).items():
+        floor[group(k)] = max(floor.get(group(k), 0.0), v)
+    # acc as an absolute difference (one RoI of 512 that flips moves it by
+    # 1/512), the losses relative to their size
+    loss_rel = {k: abs(got_l[k] - ref_l[k]) / (1.0 if k == "acc" else max(abs(ref_l[k]), 1e-3))
+                for k in ref_l}
+    check("f32 gradients", got_g.keys() == ref_g.keys(), "different parameters got gradients")
+    card_rel = grad_rel(got_g, ref_g)
+    # each gradient within 4x its module group's noise floor: cuDNN and the
+    # CPU sum the f32 convs in other orders, forward and backward, and the
+    # atomics of the RoIAlign backward add in any order, each an ulp-sized
+    # perturbation. The sampled anchors and RoIs are the same (same
+    # priorities, the card's proposals on both sides). rpn_conv alone may
+    # also take 5e-3 of its largest magnitude for each ReLU of the sparse
+    # head that the two devices decided differently (counted above): a
+    # flip adds or drops one sampled position's share (~1/256) of its
+    # gradient; with no flip it gets no slack.
+    def tol(k):
+        slack = 5e-3 * flips if k.startswith("rpn_head.rpn_conv.") else 0.0
+        return 4 * floor[group(k)] + slack
+
+    ratio = {k: v / tol(k) for k, v in card_rel.items()}
+    worst = sorted(ratio.items(), key=lambda kv: -kv[1])[:5]
+    by_group = {}
+    for k, v in card_rel.items():
+        by_group[group(k)] = max(by_group.get(group(k), 0.0), v)
+    log({"phase": "train f32 batch 1, card vs cpu", "losses_card": got_l, "losses_cpu": ref_l,
+         "loss_rel_err": loss_rel, "grad_rel_err_by_group": by_group, "noise_floor_by_group": floor,
+         "sparse_head_relu": relu_witness,
+         "worst_err_over_tolerance": [(k, r, card_rel[k]) for k, r in worst],
+         "params_with_grad": len(ref_g), "cpu_seconds": cpu_s})
+    # loss terms within 1e-3 relative (the same sums, reordered)
+    for k, v in loss_rel.items():
+        lim = 2.0 / on_card.config.rcnn_num if k == "acc" else 1e-3
+        check(f"f32 {k}", v <= lim, f"card {got_l[k]} cpu {ref_l[k]}")
+    check("f32 gradients", worst[0][1] <= 1.0, f"worst (name, err/tol, err) {worst}")
+    return launches
 
 
 def main() -> int:
@@ -545,15 +850,22 @@ def main() -> int:
         _ext.lib()
         log({"phase": "build", "seconds": time.perf_counter() - t0})
 
-        results = kernel_phase(torch, torch.device("cuda"))
-        launches = slice_phase(torch, card)
+        dev = torch.device("cuda")
+        results = kernel_phase(torch, dev)
+        launches_b1, state = slice_phase(torch, card)
+        results.update(train_kernel_phase(torch, dev))
+        launches_train = train_phase(torch, card, state)
 
         kernels = []
-        for name in ("conv3x3", "rpn_head", "nms", "roi_align"):
+        for name in KERNELS:
             r = results[(name, "bfloat16")] if (name, "bfloat16") in results else results[(name, "float32")]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name],
+                # each main path counted from zero: one batch-1 predict, one train step
+                "launches": launches_b1[name] + launches_train[name],
+                "launches_by_path": {"predict_batch1": launches_b1[name],
+                                     "train_step": launches_train[name]},
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "dtype": r["dtype"],

@@ -116,6 +116,79 @@ __global__ void roi_align_kernel(Levels lv, int L, const float* __restrict__ roi
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: d features += the transpose of the forward, per RoI.
+//
+// Replaces the Pallas TPU kernel
+// nsgp_repre_tpu/ops/roi_align_pallas.py::_roi_bwd_kernel
+// (multilevel_roi_align_bwd_pallas, used by _window_bwd): per RoI, its
+// bin gradients spread back onto the level map through the same bilinear
+// taps, accumulated in f32 and cast once to the feature dtype (the JAX
+// package accumulates in f32 too, roi_align_pallas.py:726-731). RoI and
+// batch-index gradients do not exist: proposals are data.
+//
+// What bounds it on the H100: bytes (read g once, write the level
+// gradients once). Same layout as the forward: one block per (RoI, bin
+// row), one thread per channel, the sample coordinates recomputed per
+// thread with the forward's exact arithmetic. Each tap is one coalesced
+// C-wide atomicAdd into a zeroed f32 NHWC buffer (all levels in one
+// buffer); the wrapper casts it to the feature dtype. The TPU kernel runs its RoIs
+// in order and is deterministic (:606-610); here the f32 sums of
+// overlapping RoIs are added in whatever order the atomics land, so the
+// result can differ from run to run in the last bits of f32 (the tests
+// state a tolerance for it).
+
+struct LevelRows {
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+  long off[kMaxLevels];  // first row of the level in the flat (rows, C) buffer
+};
+
+template <typename G>
+__global__ void roi_align_bwd_kernel(LevelRows lv, int L, const float* __restrict__ rois,
+                                     const int* __restrict__ batch_idx,
+                                     const G* __restrict__ grad, float* __restrict__ acc, int C,
+                                     int out_size, int ss, float finest_scale, float offset) {
+  const int r = blockIdx.x, by = blockIdx.y, c = threadIdx.x;
+  const float rx1 = rois[4 * r + 0], ry1 = rois[4 * r + 1];
+  const float rx2 = rois[4 * r + 2], ry2 = rois[4 * r + 3];
+  const float area = (rx2 - rx1) * (ry2 - ry1);
+  const float sc = sqrtf(fmaxf(area, 0.f));
+  float lf = floorf(log2f(sc / finest_scale + 1e-6f));
+  lf = fminf(fmaxf(lf, 0.f), (float)(L - 1));
+  const int l = (int)lf;
+  const int H = lv.h[l], W = lv.w[l];
+  const float s = lv.scale[l];
+  float* f = acc + (lv.off[l] + (long)batch_idx[r] * H * W) * C + c;
+
+  const float x1 = rx1 * s - offset;
+  const float y1 = ry1 * s - offset;
+  const float bw = (rx2 - rx1) * s / (float)out_size;
+  const float bh = (ry2 - ry1) * s / (float)out_size;
+  const float n_samples = (float)(ss * ss);
+
+  const G* gr = grad + (((long)r * out_size + by) * out_size) * C + c;
+  for (int bx = 0; bx < out_size; ++bx) {
+    // the mean over the bin's samples: each sample gets g / (ss * ss)
+    const float gv = to_f(gr[(long)bx * C]) / n_samples;
+    for (int sy = 0; sy < ss; ++sy) {
+      const float gy = (float)by + ((float)sy + 0.5f) / (float)ss;
+      const float y = y1 + gy * bh;
+      for (int sx = 0; sx < ss; ++sx) {
+        const float gx = (float)bx + ((float)sx + 0.5f) / (float)ss;
+        const float x = x1 + gx * bw;
+        const Tap t = bilinear(y, x, H, W);
+        if (t.w00 == 0.f && t.w01 == 0.f && t.w10 == 0.f && t.w11 == 0.f) continue;
+        atomicAdd(f + ((long)t.y0 * W + t.x0) * C, gv * t.w00);
+        atomicAdd(f + ((long)t.y1 * W + t.x0) * C, gv * t.w10);
+        atomicAdd(f + ((long)t.y0 * W + t.x1) * C, gv * t.w01);
+        atomicAdd(f + ((long)t.y1 * W + t.x1) * C, gv * t.w11);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // feats: L NHWC maps (B, H_l, W_l, C), one dtype; rois (R, 4) f32 image
@@ -146,5 +219,42 @@ extern "C" int nsgp_roi_align(const void* const* feats, const int* hs, const int
     roi_align_kernel<float><<<grid, C, 0, s>>>(lv, L, (const float*)rois,
                                                (const int*)batch_idx, (float*)out, C,
                                                out_size, ss, finest_scale, offset);
+  return (int)cudaGetLastError();
+}
+
+// grad (R, out_size, out_size, C) in grad_dtype (0 = f32, 1 = bf16); rois,
+// batch_idx as in the forward; acc: the flat f32 (rows, C) buffer of all L
+// levels (level l's (B, H_l, W_l) rows start at offs[l]), zeroed here and
+// accumulated. C <= 1024.
+extern "C" int nsgp_roi_align_bwd(const int* hs, const int* ws, const float* scales,
+                                  const long long* offs, int L, const void* rois,
+                                  const void* batch_idx, const void* grad, int grad_dtype,
+                                  void* acc, long long rows, int R, int C,
+                                  int out_size, int ss, float finest_scale, int aligned,
+                                  void* stream) {
+  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)rows * C * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  LevelRows lv;
+  for (int i = 0; i < L; ++i) {
+    lv.h[i] = hs[i];
+    lv.w[i] = ws[i];
+    lv.scale[i] = scales[i];
+    lv.off[i] = (long)offs[i];
+  }
+  const float offset = aligned ? 0.5f : 0.f;
+  if (R > 0) {
+    dim3 grid(R, out_size);
+    if (grad_dtype == 1)
+      roi_align_bwd_kernel<__nv_bfloat16><<<grid, C, 0, s>>>(
+          lv, L, (const float*)rois, (const int*)batch_idx, (const __nv_bfloat16*)grad,
+          (float*)acc, C, out_size, ss, finest_scale, offset);
+    else
+      roi_align_bwd_kernel<float><<<grid, C, 0, s>>>(lv, L, (const float*)rois,
+                                                     (const int*)batch_idx, (const float*)grad,
+                                                     (float*)acc, C, out_size, ss, finest_scale,
+                                                     offset);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,83 @@
-"""Config → DetectorConfig mapping.
+"""Config → DetectorConfig, optimizer and schedule.
 
-Counterpart of nsgp_repre_tpu/engine/runner.py, holding only
-``detector_config_from_cfg`` (copied as-is). The runners wait for slice
-(d) (ROADMAP.md, queue 1).
+Counterpart of nsgp_repre_tpu/engine/runner.py: ``detector_config_from_cfg``
+(copied as-is), ``build_optimizer`` (runner.py:72-99) and
+:func:`build_train_optimizer`, the schedule and trainable-mask wiring of
+``NullSpaceRunner.__init__`` (runner.py:279-336) as one helper, so that a
+config builds the same optimizer on both sides. The runners wait for
+slice (d) (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
-from ..models.detector import DetectorConfig
+from typing import Optional
+
+from ..models.detector import DetectorConfig, FasterRCNN
 from ..utils.config import Config
+from . import optim
+from .train import make_lr_schedule, trainable_mask
+
+
+def build_optimizer(opt_cfg: dict, lr_schedule, named_params, model: FasterRCNN,
+                    paramwise_cfg: Optional[dict] = None):
+    """Map a reference ``optim_wrapper.optimizer`` dict onto the projected
+    optimizers over ``named_params`` (SGD/Adam/AdamW ± NSCL share
+    implementations: the plain types are the NSCL ones with no transform
+    installed). ``model`` names the parameters for ``paramwise_cfg``."""
+    mults = optim.paramwise_mults(model, paramwise_cfg) if paramwise_cfg else None
+    opt_type = opt_cfg.get("type", "SGDNSCL")
+    if opt_type in ("SGDNSCL", "SGDNSCLNA", "SGD"):
+        return optim.sgd_nscl(
+            named_params, lr_schedule,
+            momentum=opt_cfg.get("momentum", 0.9),
+            weight_decay=opt_cfg.get("weight_decay", 1e-4),
+            mults=mults,
+        )
+    if opt_type in ("AdamNSCL", "Adam"):
+        return optim.adam_nscl(
+            named_params, lr_schedule, weight_decay=opt_cfg.get("weight_decay", 0.0),
+            mults=mults,
+        )
+    if opt_type in ("AdamWNSCL", "AdamW"):
+        return optim.adam_nscl(
+            named_params, lr_schedule,
+            weight_decay=opt_cfg.get("weight_decay", 0.1),
+            decoupled_wd=True,
+            mults=mults,
+        )
+    raise ValueError(opt_type)
+
+
+def build_train_optimizer(cfg: Config, model: FasterRCNN, steps_per_epoch: int):
+    """The optimizer ``NullSpaceRunner`` builds for a config: the LinearLR
+    warm-up + MultiStepLR schedule of ``param_scheduler`` (with
+    ``auto_scale_lr``), ``optim_wrapper``'s optimizer and paramwise
+    multipliers, over the trainable parameters only. Frozen parameters
+    (``trainable_mask``) get ``requires_grad_(False)`` and no entry: the
+    port's form of JAX's ``optim.masked``."""
+    opt_cfg = cfg.get("optim_wrapper", {}).get("optimizer", {})
+    max_epochs = cfg.get("train_cfg", {}).get("max_epochs", 30)
+    milestones, gamma, warmup = (8, 11), 0.1, 500
+    for s in cfg.get("param_scheduler", None) or []:
+        if s.get("type") == "MultiStepLR":
+            milestones = tuple(s.get("milestones", milestones))
+            gamma = s.get("gamma", gamma)
+        if s.get("type") == "LinearLR":
+            warmup = s.get("end", warmup)
+    base_lr = opt_cfg.get("lr", 0.02)
+    tl_cfg = cfg.get("train_dataloader", {})
+    asl = cfg.get("auto_scale_lr", {})
+    if asl.get("enable", False):
+        base_lr = base_lr * tl_cfg.get("batch_size", 16) / asl.get("base_batch_size", 16)
+    schedule = make_lr_schedule(base_lr, max(steps_per_epoch, 1), max_epochs=max_epochs,
+                                milestones=milestones, gamma=gamma, warmup_iters=warmup)
+    mask = trainable_mask(model, model.config)
+    named = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            named.append((name, p))
+    paramwise_cfg = cfg.get("optim_wrapper", {}).get("paramwise_cfg") or {}
+    return build_optimizer(opt_cfg, schedule, named, model, paramwise_cfg)
 
 
 def detector_config_from_cfg(cfg: Config) -> DetectorConfig:

@@ -10,8 +10,9 @@ kernels take.
 Every layer computes in the dtype of its input (the detector's compute
 dtype) with f32 parameters cast at use, and rounds where the JAX layers
 round: the conv or matmul result is rounded to the compute dtype before
-the (rounded) bias is added. The covariance taps of the JAX layers are
-training-only and not ported yet.
+the (rounded) bias is added. The covariance taps of the JAX layers feed
+the NSGP covariance pass of slice (c) (ROADMAP.md, queue 1) and are not
+ported yet; the training step of slice (b) does not need them.
 """
 from __future__ import annotations
 

@@ -6,6 +6,11 @@ Module names follow torchvision / mmdet (``layer1.0.conv1``,
 ``layer1.0.downsample.0``) so reference weights load by name. The JAX
 stem's space-to-depth option is an exact rewrite for the TPU; a plain
 7x7/2 conv computes the same function.
+
+``frozen_stages`` cuts the gradient after the last frozen stage
+(resnet.py:159-160 in JAX): no gradient flows into the stem and the
+frozen stages, and the optimizer gives them no entry
+(engine/train.py::trainable_mask).
 """
 from __future__ import annotations
 
@@ -45,8 +50,10 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """Returns the four stage outputs (C2..C5)."""
 
-    def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3), base_channels: int = 64):
+    def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3), base_channels: int = 64,
+                 frozen_stages: int = 1):
         super().__init__()
+        self.frozen_stages = frozen_stages
         self.conv1 = CovConv(3, base_channels, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(base_channels)
         in_ch = base_channels
@@ -66,7 +73,9 @@ class ResNet50(nn.Module):
         y = torch.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         outs = []
-        for name in self.stage_names:
+        for stage, name in enumerate(self.stage_names):
             y = getattr(self, name)(y)
+            if stage + 1 == self.frozen_stages:
+                y = y.detach()
             outs.append(y)
         return tuple(outs)

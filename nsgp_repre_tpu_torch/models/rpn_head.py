@@ -1,10 +1,15 @@
 """RPN head: shared 3x3 conv + ReLU, 1x1 objectness and 1x1 deltas.
 
-Counterpart of nsgp_repre_tpu/models/rpn_head.py (``__call__`` and
-``_fused``). Module names follow mmdet (``rpn_conv``, ``rpn_cls``,
-``rpn_reg``). Inputs and outputs are NHWC, as in the JAX package. The
-sparse-loss ``at_positions`` path belongs to training and is not ported
-yet.
+Counterpart of nsgp_repre_tpu/models/rpn_head.py (``__call__``,
+``_fused`` and ``at_positions``). Module names follow mmdet
+(``rpn_conv``, ``rpn_cls``, ``rpn_reg``). Inputs and outputs are NHWC,
+as in the JAX package.
+
+``_fused`` runs the forward-only RPN head kernel: on predict and on the
+sparse-loss train path, where the dense head only feeds the proposals
+(data, no gradient). ``at_positions`` evaluates the same three layers at
+gathered 3x3 patches for the sparse RPN loss; gradients reach the
+weights and the features through it.
 """
 from __future__ import annotations
 
@@ -49,13 +54,38 @@ class RPNHead(nn.Module):
         bcr = torch.cat([self.rpn_cls.bias, self.rpn_reg.bias])
         return wcr, bcr
 
+    @torch.no_grad()
     def _fused(self, feats):
+        """The forward-only kernel on detached inputs: its outputs carry no
+        gradient (rpn_head.py:92-95 in JAX stops it the same way)."""
         A = self.num_base_priors
-        w1 = self.rpn_conv.weight.permute(2, 3, 1, 0)  # HWIO
-        wcr, bcr = self.packed_1x1()
+        w1 = self.rpn_conv.weight.detach().permute(2, 3, 1, 0)  # HWIO
+        wcr, bcr = (t.detach() for t in self.packed_1x1())
         cls_out, reg_out = [], []
         for f in feats:
-            out = rpn_head(f.contiguous(), w1, self.rpn_conv.bias, wcr, bcr)
+            out = rpn_head(f.detach().contiguous(), w1, self.rpn_conv.bias.detach(), wcr, bcr)
             cls_out.append(out[..., :A])
             reg_out.append(out[..., A:5 * A])
         return cls_out, reg_out
+
+    def at_positions(self, patches: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Head outputs at gathered patches (rpn_head.py:100-127).
+
+        patches: (M, 3, 3, C) input windows centred on the sampled output
+        positions, taps outside the map zeroed by the caller (the dense
+        conv's zero padding). Returns cls logits (M, A) and deltas
+        (M, 4A) in the patch dtype, rounded where JAX rounds: the kernels
+        are cast to the patch dtype, each matmul is done in that dtype and
+        the bias is added in it.
+        """
+        dt = patches.dtype
+        M = patches.shape[0]
+        k = self.rpn_conv.weight.to(dt).permute(2, 3, 1, 0)  # (3, 3, C, F) as in JAX
+        h = patches.reshape(M, -1) @ k.reshape(-1, k.shape[-1])
+        h = torch.relu(h + self.rpn_conv.bias.to(dt))
+        Fc = h.shape[-1]
+        cls = h @ self.rpn_cls.weight.reshape(-1, Fc).t().to(dt)
+        cls = cls + self.rpn_cls.bias.to(dt)
+        reg = h @ self.rpn_reg.weight.reshape(-1, Fc).t().to(dt)
+        reg = reg + self.rpn_reg.bias.to(dt)
+        return cls, reg

@@ -31,22 +31,30 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
-# NMS and RoIAlign keep every multiply and add separately rounded, so a
-# box pair at the IoU threshold and every sample coordinate round exactly
-# as in the plain versions
-EXTRA_FLAGS = {"nms.cu": ["-fmad=false"], "roi_align.cu": ["-fmad=false"]}
+# NMS, RoIAlign and the anchor assignment keep every multiply and add
+# separately rounded, so a box pair at the IoU threshold, an anchor tying
+# a gt's best IoU and every sample coordinate round exactly as in the
+# plain versions
+EXTRA_FLAGS = {"nms.cu": ["-fmad=false"], "roi_align.cu": ["-fmad=false"],
+               "assign.cu": ["-fmad=false"]}
 
-LAUNCHES: Dict[str, int] = {"conv3x3": 0, "rpn_head": 0, "nms": 0, "roi_align": 0}
+LAUNCHES: Dict[str, int] = {"conv3x3": 0, "rpn_head": 0, "nms": 0, "roi_align": 0,
+                            "roi_align_bwd": 0, "assign": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "nsgp_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "nsgp_nms": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "nsgp_roi_align": [
         _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P,
     ],
+    "nsgp_roi_align_bwd": [
+        _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _F, _I, _P,
+    ],
+    "nsgp_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

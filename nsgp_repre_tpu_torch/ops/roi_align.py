@@ -3,13 +3,14 @@
 Counterpart of nsgp_repre_tpu/ops/roi_align.py::multilevel_roi_align
 (mmdet level routing, 7x7 bins, a fixed ss x ss sample grid per bin,
 mmcv bilinear semantics with samples more than one pixel outside the map
-zeroed, f32 accumulation). This is the plain version of the CUDA kernel
-in ops/roi_align_cuda.py and what that wrapper runs for CPU tensors.
+zeroed, f32 accumulation), and its gradient w.r.t. the level maps. These
+are the plain versions of the forward and backward CUDA kernels in
+ops/roi_align_cuda.py and what that wrapper runs for CPU tensors.
 Feature maps are NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -147,4 +148,47 @@ def multilevel_roi_align(
         sampled = (rows.float() * w[r0:r1, :, :, None]).sum(dim=2)  # (r, P, C)
         sampled = sampled.reshape(r1 - r0, output_size, ss, output_size, ss, C)
         out[r0:r1] = sampled.mean(dim=(2, 4))
+    return out
+
+
+def multilevel_roi_align_backward(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    batch_idx: torch.Tensor,
+    level_hw: Sequence[Tuple[int, int]],
+    batch_size: int,
+    dtype: torch.dtype = torch.float32,
+    strides: Sequence[int] = (4, 8, 16, 32),
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    finest_scale: float = 56.0,
+    aligned: bool = True,
+) -> List[torch.Tensor]:
+    """Gradient of :func:`multilevel_roi_align` w.r.t. the level maps.
+
+    g (R, output_size, output_size, C) → one (B, H_l, W_l, C) gradient
+    per level of ``level_hw``, accumulated in f32 (``index_add_`` of every
+    tap's share) and cast once to ``dtype``, as the JAX package's window
+    backward does (roi_align_pallas.py:564,586). The op is linear in the
+    features, so the gradient does not depend on them.
+    """
+    C = g.shape[-1]
+    R = rois.shape[0]
+    ss = sampling_ratio
+    P = (output_size * ss) ** 2
+    lin, w = sample_taps(level_hw, batch_size, rois, batch_idx, strides, output_size, ss,
+                         finest_scale, aligned)
+    sizes = [batch_size * h * wd for h, wd in level_hw]
+    acc = torch.zeros((sum(sizes), C), dtype=torch.float32, device=g.device)
+    # the mean over each bin's ss x ss samples: every sample gets g / (ss * ss)
+    gs = g.float() / float(ss * ss)
+    for r0 in range(0, R, ROI_CHUNK):
+        r1 = min(r0 + ROI_CHUNK, R)
+        gp = gs[r0:r1, :, None, :, None, :].expand(r1 - r0, output_size, ss, output_size, ss, C)
+        contrib = gp.reshape(r1 - r0, P, 1, C) * w[r0:r1, :, :, None]  # (r, P, 4, C)
+        acc.index_add_(0, lin[r0:r1].reshape(-1), contrib.reshape(-1, C))
+    out, off = [], 0
+    for (h, wd), n in zip(level_hw, sizes):
+        out.append(acc[off:off + n].reshape(batch_size, h, wd, C).to(dtype))
+        off += n
     return out

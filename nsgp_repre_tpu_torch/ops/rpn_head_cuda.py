@@ -8,6 +8,10 @@ Both take the JAX package's NHWC layout. On a CPU tensor the wrapper runs
 the plain PyTorch version below; on a CUDA tensor it launches the kernel
 or raises. Rounding: the f32 conv sum is rounded to the map's dtype
 before the (rounded) bias is added, as at rpn_head_pallas.py:135,148-149.
+
+Both kernels are forward only. A call with grad mode on and an input
+that requires grad raises, on either device: a gradient that silently
+stops here would train the rest of the model on a wrong loss.
 """
 from __future__ import annotations
 
@@ -46,6 +50,14 @@ def rpn_head_plain(f, w1, b1, wcr, bcr) -> torch.Tensor:
     h = _conv3x3_plain(f, w1, b1, relu=True)
     out = torch.matmul(h.float(), wcr.to(dt).float())
     return (out.to(dt) + bcr.to(dt)).contiguous()
+
+
+def _forward_only(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward only (no backward kernel): call it under torch.no_grad() "
+            "on inputs that do not require grad"
+        )
 
 
 def _launch(f, w, b, wcr: Optional[torch.Tensor], bcr: Optional[torch.Tensor],
@@ -95,6 +107,7 @@ def _launch(f, w, b, wcr: Optional[torch.Tensor], bcr: Optional[torch.Tensor],
 def conv3x3(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             relu: bool = False) -> torch.Tensor:
     """3x3/s1/p1 conv + bias (+ReLU) on an NHWC map; f32 accumulation."""
+    _forward_only("conv3x3", f, w, b)
     if not f.is_cuda:
         return conv3x3_plain(f, w, b, relu)
     return _launch(f, w, b, None, None, relu, "conv3x3")
@@ -103,6 +116,7 @@ def conv3x3(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def rpn_head(f: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              wcr: torch.Tensor, bcr: torch.Tensor) -> torch.Tensor:
     """One level of the fused RPN head: (B,H,W,C) → (B,H,W,P)."""
+    _forward_only("rpn_head", f, w1, b1, wcr, bcr)
     if not f.is_cuda:
         return rpn_head_plain(f, w1, b1, wcr, bcr)
     return _launch(f, w1, b1, wcr, bcr, True, "rpn_head")

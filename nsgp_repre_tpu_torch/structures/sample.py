@@ -30,6 +30,10 @@ class InstanceArray:
     def num_valid(self) -> torch.Tensor:
         return self.valid.sum(dim=-1)
 
+    def to(self, device) -> "InstanceArray":
+        return InstanceArray(*(None if t is None else t.to(device)
+                               for t in (self.boxes, self.labels, self.valid, self.scores)))
+
 
 @dataclasses.dataclass
 class DetBatch:
@@ -50,6 +54,11 @@ class DetBatch:
 
     def replace(self, **kw) -> "DetBatch":
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "DetBatch":
+        return DetBatch(self.images.to(device), self.img_shape.to(device),
+                        self.ori_shape.to(device), self.scale_factor.to(device),
+                        self.gt.to(device))
 
 
 def pad_instances(boxes: np.ndarray, labels: np.ndarray, capacity: int,

@@ -6,7 +6,10 @@ flat numpy dicts keyed like nsgp_repre_tpu/utils/checkpoint.py::
 _flatten_tree (``backbone/layer1_0/conv1/kernel``, HWIO kernels, (in,
 out) dense kernels). ``state_dict_from_jax`` maps those onto the port's
 state dict; it is the exact inverse of
-nsgp_repre_tpu/utils/torch_convert.py::convert_detector_state_dict.
+nsgp_repre_tpu/utils/torch_convert.py::convert_detector_state_dict. A
+JAX gradient tree has the parameters' paths, so the same call maps
+gradients name by name. :func:`port_name_from_jax` maps one parameter
+path (the key of the NSGP transforms and covariances) to a port name.
 """
 from __future__ import annotations
 
@@ -56,6 +59,16 @@ def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     if arr.ndim == 4:  # (H, W, I, O) → (O, I, H, W)
         return np.transpose(arr, (3, 2, 0, 1))
     return np.transpose(arr, (1, 0))  # (in, out) → (out, in)
+
+
+def port_name_from_jax(path: str, n_tasks: int) -> str:
+    """JAX parameter path (``backbone/layer2_0/conv1/kernel``) → port
+    parameter name (``backbone.layer2.0.conv1.weight``). ``n_tasks``, the
+    number of task heads, places the background classifier."""
+    module, leaf = path.rsplit("/", 1)
+    if leaf not in _PARAM_LEAVES:
+        raise KeyError(f"{path!r} is not a parameter path (leaf {leaf!r})")
+    return f"{_module_name(module, n_tasks)}.{_PARAM_LEAVES[leaf]}"
 
 
 def state_dict_from_jax(

@@ -22,6 +22,7 @@ from nsgp_repre_tpu.utils.torch_convert import convert_detector_state_dict
 
 from nsgp_repre_tpu_torch.apis import inference as api
 from nsgp_repre_tpu_torch.engine.runner import detector_config_from_cfg
+from nsgp_repre_tpu_torch.engine.train import TrainState, make_train_step
 from nsgp_repre_tpu_torch.models import detector as tdet
 from nsgp_repre_tpu_torch.utils.config import load_config
 from nsgp_repre_tpu_torch.utils.convert import state_dict_from_jax
@@ -132,8 +133,11 @@ def test_init_detector_loads_jax_npz_and_pth(tmp_path):
 
 def test_unported_options_raise():
     port = tdet.FasterRCNN(tdet.DetectorConfig(backbone_blocks=(1, 1, 1, 1)))
+    # the task-2 terms of the train step (slice (c))
+    opt = torch.optim.SGD(port.parameters(), lr=0.1)
+    step = make_train_step(port, opt)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.rpn_loss_and_proposals(None, None, None, with_loss=True)
+        step(TrainState(opt, replay_feats=torch.zeros(1, 4)), None)
     for kw in (dict(rpn_nms_impl="matrix"), dict(nms_type="soft_nms")):
         cfg = tdet.DetectorConfig(backbone_blocks=(1, 1, 1, 1), max_per_img=4,
                                   rpn_max_per_img=8, rpn_nms_pre=16, **kw)

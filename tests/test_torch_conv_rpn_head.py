@@ -114,3 +114,50 @@ def test_rpn_head_module_matches_jax():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
         for a, b in zip(reg, reg_ref):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
+
+
+def test_forward_only_kernels_refuse_grad():
+    """The fused head and conv have no backward: with grad mode on and an
+    input that requires grad they raise, on the CPU as on the card; under
+    no_grad (as RPNHead._fused calls them) they run."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 4, 5, 32, generator=g, requires_grad=True)
+    w, b = torch.randn(3, 3, 32, 32, generator=g), torch.zeros(32)
+    wcr, bcr = torch.randn(32, 15, generator=g), torch.zeros(15)
+    with pytest.raises(RuntimeError, match="forward only"):
+        rpn_head_cuda.rpn_head(x, w, b, wcr, bcr)
+    with pytest.raises(RuntimeError, match="forward only"):
+        rpn_head_cuda.conv3x3(x, w, b)
+    with torch.no_grad():
+        assert rpn_head_cuda.rpn_head(x, w, b, wcr, bcr).shape == (1, 4, 5, 15)
+    head = RPNHead(32, 32, 3)
+    cls, reg = head._fused([x])
+    assert not cls[0].requires_grad and cls[0].shape == (1, 4, 5, 3) and reg[0].shape[-1] == 12
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_at_positions_matches_jax(dtype):
+    """RPNHead.at_positions (the sparse RPN loss) against the JAX method on
+    the same weights and patches. Its rounding points are JAX's: kernels
+    cast to the patch dtype, each product and bias add in that dtype, so
+    bf16 agrees to one bf16 rounding of f32 sums taken in another order."""
+    f32_matmuls()
+    c = 32
+    rs = np.random.RandomState(4)
+    head = JaxRPNHead(feat_channels=c, num_base_priors=A)
+    variables = head.init(jax.random.PRNGKey(1), [jnp.zeros((1, 4, 6, c), jnp.float32)])
+    params = {k: {"kernel": v["kernel"], "bias": v["bias"] + 0.05}
+              for k, v in variables["params"].items()}
+    port = RPNHead(c, c, A)
+    port.load_state_dict({f"{k}.{leaf}": _t(np.transpose(np.asarray(v["kernel"]), (3, 2, 0, 1)))
+                          if leaf == "weight" else _t(v["bias"])
+                          for k, v in params.items() for leaf in ("weight", "bias")})
+    patches = rs.randn(40, 3, 3, c).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = head.apply({"params": params}, jnp.asarray(patches).astype(jdt), method=head.at_positions)
+    got = port.at_positions(_t(patches).to(getattr(torch, dtype)))
+    for g, r in zip(got, ref):
+        r = np.asarray(r.astype(jnp.float32))
+        assert g.dtype == getattr(torch, dtype) and g.shape == r.shape
+        tol = 1e-5 if dtype == "float32" else 2 ** -7 * np.abs(r).max()
+        np.testing.assert_allclose(g.detach().float().numpy(), r, atol=tol, rtol=0)

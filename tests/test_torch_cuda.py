@@ -7,14 +7,15 @@ imports no JAX, so it also runs on a host without it:
 
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests).
 Tolerances are those of chip_smoke.py: f32 within 1e-4 (convs) or 1e-5
-(RoIAlign) of the largest magnitude, bf16 within a couple of bf16 ulps
-of it, NMS keep lists identical.
+(RoIAlign forward and backward) of the largest magnitude, bf16 within a
+couple of bf16 ulps of it, NMS keep lists and anchor assignments
+identical, the assignment's IoUs bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from nsgp_repre_tpu_torch.ops import _ext, nms, nms_cuda, roi_align, roi_align_cuda
+from nsgp_repre_tpu_torch.ops import _ext, assign_cuda, nms, nms_cuda, roi_align, roi_align_cuda
 from nsgp_repre_tpu_torch.ops import rpn_head_cuda as rh
 
 pytestmark = pytest.mark.cuda
@@ -147,10 +148,129 @@ def test_small_predict_card_matches_cpu(dev):
 
     _ext.reset_launches()
     got = make_eval_step(card)(batch(dev))
-    assert dict(_ext.LAUNCHES) == {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1}
+    assert dict(_ext.LAUNCHES) == {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1,
+                                   "roi_align_bwd": 0, "assign": 0}
     ref = make_eval_step(cpu)(batch("cpu"))
     gv, rv = got.valid[0].cpu(), ref.valid[0]
     assert int(gv.sum()) == int(rv.sum()) > 0
     assert torch.equal(got.labels[0].cpu()[gv], ref.labels[0][rv])
     torch.testing.assert_close(got.scores[0].cpu()[gv], ref.scores[0][rv], rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(got.boxes[0].cpu()[gv], ref.boxes[0][rv], rtol=1e-3, atol=5e-2)
+
+
+def _assign_inputs(seed, B, N, G, ties):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(N, 2, generator=g) * 900
+    anchors = torch.cat([xy, xy + torch.rand(N, 2, generator=g) * 200 + 8], -1)
+    gxy = torch.rand(B, G, 2, generator=g) * 800
+    gt = torch.cat([gxy, gxy + torch.rand(B, G, 2, generator=g) * 300 + 16], -1)
+    if ties:
+        gt[:, 1] = gt[:, 0]  # duplicated gt: argmax ties and claim ties
+        gt[:, 2] = anchors[:B]  # a gt equal to an anchor (IoU 1)
+    n_valid = torch.randint(1, 9, (B, 1), generator=g)
+    gt_valid = torch.arange(G)[None] < n_valid
+    prior_valid = torch.rand(B, N, generator=g) > 0.05
+    return anchors, gt, gt_valid, prior_valid
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("B,N,G", [(4, 20_000, 64), (2, 777, 3)])
+def test_assign_kernel(dev, ties, B, N, G):
+    args = [t.to(dev) for t in _assign_inputs(B + N, B, N, G, ties)]
+    before = _ext.LAUNCHES["assign"]
+    got = assign_cuda.rpn_assign_targets(*args, 0.7, 0.3, 0.3)
+    assert _ext.LAUNCHES["assign"] == before + 1
+    ref = assign_cuda.rpn_assign_targets_plain(*args, 0.7, 0.3, 0.3)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1])  # bit-equal IoUs
+    assert (got[0] >= 0).any()
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_roi_align_bwd_kernel(dev, dt):
+    """The backward kernel against the plain backward, and autograd
+    through the wrapper launching it once."""
+    g = torch.Generator().manual_seed(3)
+    B, C, H, W = 2, 256, 160, 224
+    level_hw = [(H // s, W // s) for s in (4, 8, 16, 32)]
+    R = 300
+    xy = torch.rand(R, 2, generator=g) * torch.tensor([W, H]) - 10
+    side = torch.exp(torch.rand(R, 2, generator=g) * 4.5 + 2)
+    rois = torch.cat([xy, xy + side], -1).to(dev)
+    bidx = torch.randint(0, B, (R,), generator=g, dtype=torch.int32).to(dev)
+    gout = torch.randn(R, 7, 7, C, generator=g).to(dev, dt)
+    before = _ext.LAUNCHES["roi_align_bwd"]
+    got = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt)
+    assert _ext.LAUNCHES["roi_align_bwd"] == before + 1
+    ref = roi_align.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt)
+    for x, y in zip(got, ref):
+        assert x.dtype == dt and x.shape == y.shape
+        if dt == torch.float32:
+            _close(x, y, dt, f32_rel=1e-5)
+        else:
+            assert (x.float() - y.float()).abs().max().item() <= 2 ** -7 * y.float().abs().max().item()
+    feats = [torch.zeros(B, h, w, C, device=dev, dtype=dt, requires_grad=True) for h, w in level_hw]
+    roi_align_cuda.multilevel_roi_align(feats, rois, bidx).backward(gout)
+    assert _ext.LAUNCHES["roi_align_bwd"] == before + 2
+    for f, y in zip(feats, got):
+        _close(f.grad, y, dt, f32_rel=1e-5)
+
+
+def test_forward_only_kernels_refuse_grad(dev):
+    x = torch.zeros(1, 4, 4, 32, device=dev, requires_grad=True)
+    w = torch.zeros(3, 3, 32, 32, device=dev)
+    with pytest.raises(RuntimeError, match="forward only"):
+        rh.conv3x3(x, w, torch.zeros(32, device=dev))
+
+
+def test_small_train_step_card_matches_cpu(dev):
+    """The task-1 loss and backward of a one-block-per-stage detector in
+    f32 at batch 2, on the card (kernels) and on the CPU (plain versions)
+    from the same weights and priorities: the loss terms within 1e-4
+    relative and every gradient within 1e-3 of its largest magnitude
+    (cuDNN and the CPU sum in other orders; the RoI head runs on the
+    card's proposals on both sides). Then two make_train_step steps on
+    the card launch every training kernel once per step."""
+    from nsgp_repre_tpu_torch.engine.runner import build_train_optimizer
+    from nsgp_repre_tpu_torch.engine.train import TrainState, make_train_step
+    from nsgp_repre_tpu_torch.models.detector import FasterRCNN
+    from nsgp_repre_tpu_torch.testing import demo_det_batch, split_loss_and_grads, tiny_detector_config
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    cfg = tiny_detector_config(rpn_num=64, rcnn_num=32)
+    cpu = FasterRCNN(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.rpn_head.rpn_cls.weight.mul_(20.0)
+    card = FasterRCNN(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    batch = demo_det_batch(2, 64, 96, num_instances=(2, 3), num_classes=2, gt_capacity=4, seed=1)
+    n = sum(-(-64 // s) * -(-96 // s) * cfg.num_base_priors for s in cfg.anchor_strides)
+    pg = torch.Generator().manual_seed(5)
+    pri = {"rpn": torch.rand(2, n, generator=pg), "roi": torch.rand(2, 4 + cfg.rpn_max_per_img, generator=pg)}
+    pri["roi2"] = torch.rand(pri["roi"].shape, generator=pg)
+    _ext.reset_launches()
+    got_l, got_g, props = split_loss_and_grads(card, batch, pri)
+    launches = dict(_ext.LAUNCHES)
+    ref_l, ref_g, _ = split_loss_and_grads(cpu, batch, pri, proposals=props)
+    assert launches["assign"] == 1 and launches["roi_align"] == 1 and launches["roi_align_bwd"] == 1
+    for k in ref_l:
+        assert abs(got_l[k] - ref_l[k]) <= 1e-4 * max(abs(ref_l[k]), 1e-3), (k, got_l[k], ref_l[k])
+    assert got_g.keys() == ref_g.keys()
+    for k in ref_g:
+        scale = ref_g[k].abs().max().item()
+        assert (got_g[k] - ref_g[k]).abs().max().item() <= 1e-3 * max(scale, 1e-6), k
+
+    opt = build_train_optimizer(load_config("cl_faster_rcnn_cfgs/incremental_task/"
+                                            "cl_faster_rcnn_nsgp_repre_15_5_1.py"), card, 10)
+    step = make_train_step(card, opt)
+    state = TrainState(opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        _ext.reset_launches()
+        state, metrics = step(state, batch.to(dev), gen)
+        assert all(torch.isfinite(v).item() for v in metrics.values())
+        assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 1,
+                                       "roi_align_bwd": 1, "assign": 1}
+

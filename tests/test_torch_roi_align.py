@@ -2,15 +2,22 @@
 package: the XLA gather path (reference routing) at f32 atol 1e-5, and
 the Pallas window kernel (interpret=True) at atol 1e-4 on RoIs that its
 window-fit routing leaves on their mmdet level (its separable-matmul
-pooling sums in another order, tests/test_pallas_ops.py:68-70)."""
+pooling sums in another order, tests/test_pallas_ops.py:68-70). The
+backward (plain, and autograd through the wrapper) against ``jax.vjp``
+of the gather path at f32 atol 1e-5 and against the Pallas backward
+kernel (interpret=True) at atol 1e-4, for the same reasons."""
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nsgp_repre_tpu.ops.roi_align import multilevel_roi_align as jax_roi_align
-from nsgp_repre_tpu.ops.roi_align_pallas import multilevel_roi_align_pallas, route_levels
+from nsgp_repre_tpu.ops.roi_align_pallas import (multilevel_roi_align_bwd_pallas,
+                                                  multilevel_roi_align_pallas, route_levels)
 
-from nsgp_repre_tpu_torch.ops.roi_align import map_roi_levels, multilevel_roi_align
+from nsgp_repre_tpu_torch.ops.roi_align import (map_roi_levels, multilevel_roi_align,
+                                                multilevel_roi_align_backward)
 from nsgp_repre_tpu_torch.ops.roi_align_cuda import multilevel_roi_align as roi_align_wrapper
 
 STRIDES = (4, 8, 16, 32)
@@ -89,3 +96,76 @@ def test_wrapper_bf16_on_cpu_matches_jax():
     got = roi_align_wrapper(tf, _t(rois), _t(bidx), strides=STRIDES)
     assert got.dtype == torch.bfloat16 and got.shape == (len(rois), 7, 7, 32)
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# backward: the gradient w.r.t. the level maps
+# ---------------------------------------------------------------------------
+
+def _jax_vjp(feats, rois, bidx, g, lvl=None):
+    def f(fs):
+        return jax_roi_align(fs, jnp.asarray(rois), jnp.asarray(bidx), strides=STRIDES,
+                             lvl_override=None if lvl is None else jnp.asarray(lvl))
+
+    _, vjp = jax.vjp(f, [jnp.asarray(x) for x in feats])
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))[0]]
+
+
+def _levels_hit(grads):
+    return sum(bool(np.abs(x).max() > 0) for x in grads)
+
+
+def test_backward_plain_matches_jax_vjp():
+    """All four levels and both images receive gradient; f32 sums of the
+    same tap products in another order (index_add_ against XLA's scatter)."""
+    feats, rois, bidx = _fixture(seed=5, R=64)
+    g = np.random.RandomState(6).randn(len(rois), 7, 7, 32).astype(np.float32)
+    ref = _jax_vjp(feats, rois, bidx, g)
+    level_hw = [(f.shape[1], f.shape[2]) for f in feats]
+    got = multilevel_roi_align_backward(_t(g), _t(rois), _t(bidx), level_hw, 2, strides=STRIDES)
+    assert _levels_hit(ref) == 4 and all(np.abs(r[b]).max() > 0 for r in ref[:2] for b in (0, 1))
+    for x, r in zip(got, ref):
+        assert x.dtype == torch.float32 and x.shape == r.shape
+        np.testing.assert_allclose(x.numpy(), r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_wrapper_matches_jax_vjp(dtype):
+    """``multilevel_roi_align`` (RoIAlignFunction) differentiates w.r.t.
+    the features only; the level gradients come back in the feature dtype
+    (one rounding of the f32 sums in bf16; the reference gets the same
+    bf16-valued output gradient)."""
+    feats, rois, bidx = _fixture(seed=7, R=40)
+    g = _t(np.random.RandomState(8).randn(len(rois), 7, 7, 32).astype(np.float32)).to(dtype)
+    ref = _jax_vjp(feats, rois, bidx, g.float().numpy())
+    tf = [_t(f).to(dtype).requires_grad_(True) for f in feats]
+    r = _t(rois).requires_grad_(True)
+    out = roi_align_wrapper(tf, r, _t(bidx), strides=STRIDES)
+    assert out.dtype == dtype
+    out.backward(g)
+    assert r.grad is None  # proposals are data
+    atol = 1e-5 if dtype == torch.float32 else 0.0
+    for f, ref_l in zip(tf, ref):
+        assert f.grad.dtype == dtype
+        tol = atol + (2 ** -8 * np.abs(ref_l).max() if dtype == torch.bfloat16 else 0.0)
+        np.testing.assert_allclose(f.grad.float().numpy(), ref_l, atol=tol, rtol=0)
+
+
+def test_backward_plain_matches_pallas_bwd_interpret():
+    """The port's backward against the TPU kernel in interpret mode on
+    RoIs that its window-fit routing leaves on their mmdet level."""
+    feats, rois, bidx = _fixture(seed=9, R=72)
+    level_hw = tuple((f.shape[1], f.shape[2]) for f in feats)
+    bumped = np.asarray(route_levels(jnp.asarray(rois), level_hw, STRIDES, 7, 2, 56.0))
+    mmdet = map_roi_levels(_t(rois), 4).numpy()
+    keep = np.flatnonzero(bumped == mmdet)
+    keep = keep[: 8 * (len(keep) // 8)]  # the Pallas kernel takes R % 8 == 0
+    np.testing.assert_array_equal(bumped[keep], mmdet[keep])
+    assert len(keep) >= 32 and len(np.unique(mmdet[keep])) >= 3
+    r, b = rois[keep], bidx[keep]
+    g = np.random.RandomState(10).randn(len(keep), 7, 7, 32).astype(np.float32)
+    ref = multilevel_roi_align_bwd_pallas(jnp.asarray(g), jnp.asarray(r), jnp.asarray(b),
+                                          level_hw, 2, strides=STRIDES, interpret=True)
+    got = multilevel_roi_align_backward(_t(g), _t(r), _t(b), level_hw, 2, strides=STRIDES)
+    for x, y in zip(got, ref):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-4, rtol=0)
