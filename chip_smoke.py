@@ -12,7 +12,10 @@ Phases, each of which raises on a failed check (exit code 1):
    the same seeded inputs at the shapes the batch-1 predict path gives it
    (608x1024 canvas), in bf16 and in f32, with the tolerance stated beside
    each check; kernel, plain-version and library times from CUDA events,
-   and the least time the card could take for the same work;
+   and the least time the card could take for the same work; the conv
+   kernels also at batch 16 (the train step's rpn_head), each bf16 conv
+   called twice for the same bits; the row gather (no caller) on a table
+   of 400,000 4-KB rows;
 4. slice: full-width Faster R-CNN R-50-FPN (15+5 VOC config, task 1) built
    by ``init_detector`` with seeded weights and driven by
    ``inference_detector``: bf16 at batch 1 (every predict kernel must
@@ -64,6 +67,7 @@ REPLACES = {
     "roi_align": "nsgp_repre_tpu/ops/roi_align_pallas.py:305",
     "roi_align_bwd": "nsgp_repre_tpu/ops/roi_align_pallas.py:600",
     "assign": "nsgp_repre_tpu/ops/assign_pallas.py:44",
+    "gather": "nsgp_repre_tpu/ops/gather_pallas.py:27",
 }
 SOURCES = {
     "conv3x3": "nsgp_repre_tpu_torch/csrc/conv3x3.cu",
@@ -72,20 +76,21 @@ SOURCES = {
     "roi_align": "nsgp_repre_tpu_torch/csrc/roi_align.cu",
     "roi_align_bwd": "nsgp_repre_tpu_torch/csrc/roi_align.cu",
     "assign": "nsgp_repre_tpu_torch/csrc/assign.cu",
+    "gather": "nsgp_repre_tpu_torch/csrc/gather.cu",
 }
-KERNELS = ("conv3x3", "rpn_head", "nms", "roi_align", "roi_align_bwd", "assign")
+KERNELS = ("conv3x3", "rpn_head", "nms", "roi_align", "roi_align_bwd", "assign", "gather")
 # launches of each kernel in one predict: batch 1 runs the fused FPN
 # convs (P2-P5) and the fused RPN head (P2-P6); every batch runs
-# proposal + multiclass NMS and one RoIAlign
+# proposal + multiclass NMS and one RoIAlign; the row gather has no caller
 EXPECTED_B1 = {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1, "roi_align_bwd": 0,
-               "assign": 0}
+               "assign": 0, "gather": 0}
 EXPECTED_B16 = {"conv3x3": 0, "rpn_head": 0, "nms": 2, "roi_align": 1, "roi_align_bwd": 0,
-                "assign": 0}
+                "assign": 0, "gather": 0}
 # launches in one train step (sparse RPN loss, any batch): the forward-only
 # RPN head on P2-P6, the anchor assignment, proposal NMS, and RoIAlign
 # forward and backward once each
 EXPECTED_TRAIN = {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 1, "roi_align_bwd": 1,
-                  "assign": 1}
+                  "assign": 1, "gather": 0}
 TRAIN_BATCH = 16  # _base_/datasets/voc_task_base.py:11
 GT_CAPACITY = 64  # nsgp_repre_tpu/engine/runner.py:252
 STEPS_PER_EPOCH = 1000  # read only by the MultiStepLR milestones (epochs 8, 11)
@@ -123,6 +128,26 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int) -> float:
+    """Mean device time of one call of ``fn``: the device-side events
+    (kernels, copies) torch.profiler records over ``iters`` calls after a
+    warm-up call, summed, without the host's launch gaps between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity")
+                and not getattr(e, "is_user_annotation", False))
+    check("device_ms", total > 0, "no device time recorded")
+    return total / 1e3 / iters
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -156,22 +181,23 @@ def proposal_like_boxes(torch, g, n, canvas=CANVAS):
     return b
 
 
-def kernel_phase(torch, dev):
+def conv_phase(torch, dev, g, batch: int):
+    """conv3x3 (the FPN output convs, P2-P5) and rpn_head (P2-P6) on
+    ``batch`` seeded maps of the canvas's levels, bf16 and f32: each kernel
+    against its plain version, two calls of each bit for bit, and, but for
+    f32 at batch > 1, kernel, plain and library times and the bound.
+    Results are keyed (kernel, dtype) at batch 1, (kernel, dtype, batch)
+    otherwise."""
     import torch.nn.functional as F
 
-    from nsgp_repre_tpu_torch.ops import _ext, nms, nms_cuda, roi_align, roi_align_cuda
     from nsgp_repre_tpu_torch.ops import rpn_head_cuda as rh
 
-    g = torch.Generator().manual_seed(SEED)
-    shapes = level_shapes()
     results = {}
-
-    # ---- conv3x3 (FPN output convs, P2-P5) and rpn_head (P2-P6) ----
-    w = torch.randn(3, 3, C, C, generator=g) / (9 * C) ** 0.5
-    b = torch.randn(C, generator=g) * 0.1
-    wcr = torch.randn(C, 5 * A, generator=g) / C ** 0.5
-    bcr = torch.randn(5 * A, generator=g) * 0.1
-    maps32 = [torch.randn(1, h, wd, C, generator=g) for h, wd in shapes]
+    w = torch.randn(3, 3, C, C, generator=g, device=g.device) / (9 * C) ** 0.5
+    b = torch.randn(C, generator=g, device=g.device) * 0.1
+    wcr = torch.randn(C, 5 * A, generator=g, device=g.device) / C ** 0.5
+    bcr = torch.randn(5 * A, generator=g, device=g.device) * 0.1
+    maps32 = [torch.randn(batch, h, wd, C, generator=g, device=g.device) for h, wd in level_shapes()]
     for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         size = 2 if dt == torch.bfloat16 else 4
         maps = [m.to(dev, dt) for m in maps32]
@@ -180,15 +206,20 @@ def kernel_phase(torch, dev):
         wcr_oihw = wcrd.t().reshape(5 * A, C, 1, 1).to(dt).contiguous()
         for name in ("conv3x3", "rpn_head"):
             levels = maps[:4] if name == "conv3x3" else maps
-            err, tol_ok, tol_desc = 0.0, True, ""
+
+            def kernel(x):
+                return (rh.conv3x3(x, wd, bd) if name == "conv3x3"
+                        else rh.rpn_head(x, wd, bd, wcrd, bcrd))
+
+            def plain(x):
+                return (rh.conv3x3_plain(x, wd, bd) if name == "conv3x3"
+                        else rh.rpn_head_plain(x, wd, bd, wcrd, bcrd))
+
+            err, tol_ok, same, tol_desc = 0.0, True, True, ""
             for x in levels:
-                if name == "conv3x3":
-                    got = rh.conv3x3(x, wd, bd)
-                    ref = rh.conv3x3_plain(x, wd, bd)
-                else:
-                    got = rh.rpn_head(x, wd, bd, wcrd, bcrd)
-                    ref = rh.rpn_head_plain(x, wd, bd, wcrd, bcrd)
+                got, again, ref = kernel(x), kernel(x), plain(x)
                 torch.cuda.synchronize()
+                same &= torch.equal(got, again)
                 e = (got.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
                 if dt == torch.float32:
@@ -202,18 +233,16 @@ def kernel_phase(torch, dev):
                     tol, tol_desc = 2 ** -6 * scale, "2**-6 * max|plain|"
                 tol_ok &= e <= tol
                 err = max(err, e)
-            check(f"{name} {dt_name}", tol_ok, f"max_abs_err {err} > {tol_desc}")
-
-            def run_kernel():
-                for x in levels:
-                    (rh.conv3x3(x, wd, bd) if name == "conv3x3"
-                     else rh.rpn_head(x, wd, bd, wcrd, bcrd))
-
-            def run_plain():
-                for x in levels:
-                    (rh.conv3x3_plain(x, wd, bd) if name == "conv3x3"
-                     else rh.rpn_head_plain(x, wd, bd, wcrd, bcrd))
-
+                del got, again, ref
+            label = f"{name} {dt_name} batch {batch}"
+            check(label, tol_ok, f"max_abs_err {err} > {tol_desc}")
+            # no split-K, no atomics: a call gives the same bits every time
+            check(label, same, "two calls of the kernel differ")
+            entry = dict(kernel=name, dtype=dt_name, batch=batch, max_abs_err=err, tol=tol_desc,
+                         bit_identical_reruns=same)
+            if dt == torch.float32 and batch > 1:
+                log(entry)
+                continue
             nchw = [x.permute(0, 3, 1, 2) for x in levels]  # channels_last views
 
             def run_library():
@@ -228,17 +257,68 @@ def kernel_phase(torch, dev):
             nbytes += len(levels) * (9 * C * C * size + C * 4 + C * P * size + P * 4)
             flops = sum(2 * (x.numel() // C) * (9 * C * C + C * P) for x in levels)
             bms, bby = bound(nbytes, flops, dt_name)
-            results[(name, dt_name)] = dict(
-                kernel=name, dtype=dt_name, launches_per_predict=len(levels),
+            run_kernel = lambda: [kernel(x) for x in levels]  # noqa: E731
+            entry.update(
+                launches=len(levels),
                 kernel_ms=time_ms(torch, run_kernel, 10),
-                plain_ms=time_ms(torch, run_plain, 5),
+                # the same calls without the host's gaps: what they cost the card
+                device_ms=device_ms(torch, run_kernel, 5),
+                device_ms_by_level=[device_ms(torch, lambda x=x: kernel(x), 5) for x in levels],
+                library_device_ms=device_ms(torch, run_library, 5),
+                plain_ms=time_ms(torch, lambda: [plain(x) for x in levels], 5 if batch == 1 else 2,
+                                 warmup=1),
                 library_ms=time_ms(torch, run_library, 10),
                 library_call=("F.conv2d 3x3" if name == "conv3x3"
                               else "F.conv2d 3x3 + relu + F.conv2d 1x1"),
-                max_abs_err=err, tol=tol_desc, bound_ms=bms, bound_by=bby,
-                bytes=nbytes, flops=flops,
+                bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops,
             )
-            log(results[(name, dt_name)])
+            results[(name, dt_name) if batch == 1 else (name, dt_name, batch)] = entry
+            log(entry)
+    return results
+
+
+def gather_phase(torch, dev):
+    """The row gather (no caller in either package) against its plain
+    version, bit for bit, at the TPU kernel's measured shape class: an f32
+    table of hundreds of thousands of 4-KB rows, some indices out of range."""
+    from nsgp_repre_tpu_torch.ops import gather_cuda
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    N, Cg, M = 400_000, 1024, 600_000
+    table = torch.randn(N, Cg, generator=g, device=dev)
+    idx = torch.randint(-N // 100, N + N // 100, (M,), generator=g, device=dev, dtype=torch.int32)
+    got, ref = gather_cuda.gather_rows(table, idx), gather_cuda.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    check("gather", same, "kernel and plain rows differ")
+    del got, ref
+    clamped = idx.clamp(0, N - 1).long()
+    rows = int(torch.unique(clamped).numel())
+    # the distinct rows it must read, its indices, the rows it writes
+    nbytes = rows * Cg * 4 + M * 4 + M * Cg * 4
+    bms, bby = bound(nbytes, 0, "float32")
+    entry = dict(
+        kernel="gather", dtype="float32", table=[N, Cg], indices=M, distinct_rows=rows,
+        out_of_range=int(((idx < 0) | (idx >= N)).sum()), launches_per_predict=0,
+        kernel_ms=time_ms(torch, lambda: gather_cuda.gather_rows(table, idx), 20),
+        plain_ms=time_ms(torch, lambda: gather_cuda.gather_rows_plain(table, idx), 5),
+        library_ms=time_ms(torch, lambda: torch.index_select(table, 0, clamped), 20),
+        library_call="torch.index_select on the clamped indices",
+        max_abs_err=0.0, tol="bit-identical rows", bound_ms=bms, bound_by=bby, bytes=nbytes)
+    log(entry)
+    return {("gather", "float32"): entry}
+
+
+def kernel_phase(torch, dev):
+    from nsgp_repre_tpu_torch.ops import _ext, nms, nms_cuda, roi_align, roi_align_cuda
+
+    g = torch.Generator().manual_seed(SEED)
+    shapes = level_shapes()
+    results = {}
+
+    results.update(conv_phase(torch, dev, g, 1))
+    results.update(conv_phase(torch, dev, torch.Generator(device=dev).manual_seed(SEED + 7),
+                              TRAIN_BATCH))
 
     # ---- nms: proposals (5 levels, 8304 boxes, IoU 0.7, 1000 kept) and
     # multiclass (1000 x 20 boxes, IoU 0.5, 100 kept), batch 1 ----
@@ -852,6 +932,7 @@ def main() -> int:
 
         dev = torch.device("cuda")
         results = kernel_phase(torch, dev)
+        results.update(gather_phase(torch, dev))
         launches_b1, state = slice_phase(torch, card)
         results.update(train_kernel_phase(torch, dev))
         launches_train = train_phase(torch, card, state)
@@ -870,6 +951,12 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "dtype": r["dtype"],
             })
+            if "device_ms" in r:  # the conv kernels: device time beside the eager calls'
+                kernels[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
+                r16 = results[(name, "bfloat16", TRAIN_BATCH)]  # 16 images (the train step's rpn_head)
+                kernels[-1]["batch16"] = {k: r16[k] for k in (
+                    "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms",
+                    "max_abs_err")} | {"ms": r16["kernel_ms"]}
         log(card)
         log({"kernels": kernels})
     except Exception:  # noqa: BLE001 — any failed phase fails the run

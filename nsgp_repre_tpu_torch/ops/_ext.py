@@ -39,7 +39,7 @@ EXTRA_FLAGS = {"nms.cu": ["-fmad=false"], "roi_align.cu": ["-fmad=false"],
                "assign.cu": ["-fmad=false"]}
 
 LAUNCHES: Dict[str, int] = {"conv3x3": 0, "rpn_head": 0, "nms": 0, "roi_align": 0,
-                            "roi_align_bwd": 0, "assign": 0}
+                            "roi_align_bwd": 0, "assign": 0, "gather": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +55,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _F, _I, _P,
     ],
     "nsgp_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "nsgp_gather": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

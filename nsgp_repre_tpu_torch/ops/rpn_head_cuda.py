@@ -4,10 +4,12 @@ Counterparts of nsgp_repre_tpu/ops/rpn_head_pallas.py: ``conv3x3_fused``
 (FPN output convs at batch 1) and ``rpn_head_fused`` (3x3 conv + bias +
 ReLU + one packed 1x1 matmul: A objectness logits then 4A deltas).
 
-Both take the JAX package's NHWC layout. On a CPU tensor the wrapper runs
-the plain PyTorch version below; on a CUDA tensor it launches the kernel
-or raises. Rounding: the f32 conv sum is rounded to the map's dtype
-before the (rounded) bias is added, as at rpn_head_pallas.py:135,148-149.
+Both take the JAX package's NHWC layout and HWIO weights. On a CPU tensor
+the wrapper runs the plain PyTorch version below; on a CUDA tensor it
+launches the kernel or raises. Rounding: the f32 conv sum is rounded to
+the map's dtype before the (rounded) bias is added, as at
+rpn_head_pallas.py:135,148-149. The bf16 kernel reads its weight K-major,
+in the layout :func:`conv_weight_kmajor` makes.
 
 Both kernels are forward only. A call with grad mode on and an input
 that requires grad raises, on either device: a gradient that silently
@@ -21,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _ext
+
+KSTEP = 64  # channels per K step of the bf16 kernel (csrc/conv3x3.cu BK)
 
 
 def _conv3x3_plain(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool):
@@ -52,6 +56,24 @@ def rpn_head_plain(f, w1, b1, wcr, bcr) -> torch.Tensor:
     return (out.to(dt) + bcr.to(dt)).contiguous()
 
 
+def conv_weight_kmajor(w: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """HWIO (3,3,C,F) → K-major (F, 9*Cp) in ``dtype`` (default w's), the B
+    operand of the bf16 kernel.
+
+    Column k = (ky*3 + kx)*Cp + c holds w[ky, kx, c]; Cp is C rounded up
+    to the kernel's 64-channel K step, and the columns c >= C are zero
+    (the kernel's loads of those channels are zero-filled too). So
+    ``im2col(f) @ conv_weight_kmajor(w).T`` is the conv, with im2col's
+    rows ordered the same way.
+    """
+    C, Fo = w.shape[2], w.shape[3]
+    Cp = -(-C // KSTEP) * KSTEP
+    wk = (torch.empty if Cp == C else torch.zeros)((Fo, 3, 3, Cp), dtype=dtype or w.dtype,
+                                                    device=w.device)
+    wk[..., :C].copy_(w.permute(3, 0, 1, 2))
+    return wk.reshape(Fo, 9 * Cp)
+
+
 def _forward_only(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -71,10 +93,11 @@ def _launch(f, w, b, wcr: Optional[torch.Tensor], bcr: Optional[torch.Tensor],
     if tuple(b.shape) != (Fo,):
         raise ValueError(f"b must be ({Fo},), got {tuple(b.shape)}")
     bf16 = f.dtype == torch.bfloat16
-    if C % (32 if bf16 else 16):
-        raise ValueError(f"{name} kernel needs C % {32 if bf16 else 16} == 0, got C={C}")
+    # bf16: the tensor map needs 16-byte pixel rows and a 16-byte aligned base
+    if C % (8 if bf16 else 16):
+        raise ValueError(f"{name} kernel needs C % {8 if bf16 else 16} == 0, got C={C}")
     if bf16 and f.data_ptr() % 16:
-        raise ValueError(f"{name} kernel reads 16-byte rows: f must be 16-byte aligned")
+        raise ValueError(f"{name} kernel loads the map by TMA: f must be 16-byte aligned")
     P = 0
     if wcr is not None:
         P = wcr.shape[1]
@@ -89,7 +112,8 @@ def _launch(f, w, b, wcr: Optional[torch.Tensor], bcr: Optional[torch.Tensor],
         bcr = bcr.to(device=f.device, dtype=torch.float32).contiguous()
     elif bf16 and Fo % 128:
         raise ValueError(f"{name} kernel needs F % 128 == 0 in bf16, got F={Fo}")
-    w = w.to(device=f.device, dtype=f.dtype).contiguous()
+    w = w.to(device=f.device)
+    w = conv_weight_kmajor(w, f.dtype) if bf16 else w.to(f.dtype).contiguous()
     b = b.to(device=f.device, dtype=torch.float32).contiguous()
     out = torch.empty((B, H, W, P or Fo), device=f.device, dtype=f.dtype)
     if out.numel():

@@ -87,6 +87,27 @@ def test_plain_matches_pallas_bf16(kernel):
                                atol=2e-2 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("C", [64, 40])
+def test_kmajor_weight_layout_is_im2col(C):
+    """The bf16 kernel's K-major weight (F, 9*Cp), used as a plain im2col
+    product (taps in (ky, kx) order, channels padded to Cp with zeros),
+    is the conv that conv3x3_plain computes (f32, atol 1e-4: another
+    summation order)."""
+    f32_matmuls()
+    rng = np.random.RandomState(5)
+    B, H, W, Fo = 2, 5, 7, 24
+    x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+    w1, b1, _, _ = _weights(rng, C, Fo)
+    wk = rpn_head_cuda.conv_weight_kmajor(_t(w1))
+    Cp = -(-C // 64) * 64
+    assert wk.shape == (Fo, 9 * Cp) and wk.is_contiguous()
+    xp = torch.nn.functional.pad(x, (0, Cp - C, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, ky:ky + H, kx:kx + W] for ky in range(3) for kx in range(3)], 3)
+    got = cols.reshape(B * H * W, 9 * Cp) @ wk.t() + _t(b1)
+    ref = rpn_head_cuda.conv3x3_plain(x, _t(w1), _t(b1))
+    np.testing.assert_allclose(got.reshape(B, H, W, Fo).numpy(), ref.numpy(), atol=1e-4, rtol=0)
+
+
 def test_rpn_head_module_matches_jax():
     """The port's RPNHead, fused (plain-version path) and unfused, on
     weights copied from a JAX RPNHead (HWIO → OIHW)."""

@@ -8,14 +8,16 @@ imports no JAX, so it also runs on a host without it:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests).
 Tolerances are those of chip_smoke.py: f32 within 1e-4 (convs) or 1e-5
 (RoIAlign forward and backward) of the largest magnitude, bf16 within a
-couple of bf16 ulps of it, NMS keep lists and anchor assignments
-identical, the assignment's IoUs bit-equal.
+couple of bf16 ulps of it, NMS keep lists, anchor assignments and
+gathered rows identical, the assignment's IoUs bit-equal; the bf16
+convs give the same bits on every call.
 """
 import numpy as np
 import pytest
 import torch
 
-from nsgp_repre_tpu_torch.ops import _ext, assign_cuda, nms, nms_cuda, roi_align, roi_align_cuda
+from nsgp_repre_tpu_torch.ops import (_ext, assign_cuda, gather_cuda, nms, nms_cuda, roi_align,
+                                      roi_align_cuda)
 from nsgp_repre_tpu_torch.ops import rpn_head_cuda as rh
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +43,7 @@ def _close(got, ref, dt, f32_rel=1e-4):
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,F,relu", [((1, 37, 53, 64), 128, True),
                                           ((2, 19, 32, 256), 256, False),
+                                          ((2, 76, 128, 256), 256, True),
                                           ((1, 1, 3, 32), 128, False)])
 def test_conv3x3_kernel(dev, dt, shape, F, relu):
     g = torch.Generator().manual_seed(0)
@@ -55,7 +58,8 @@ def test_conv3x3_kernel(dev, dt, shape, F, relu):
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 38, 64, 256), (3, 5, 7, 256)])
+@pytest.mark.parametrize("shape", [(1, 38, 64, 256), (3, 5, 7, 256), (2, 19, 32, 256),
+                                   (1, 152, 256, 256)])
 def test_rpn_head_kernel(dev, dt, shape):
     g = torch.Generator().manual_seed(1)
     C = shape[-1]
@@ -70,9 +74,34 @@ def test_rpn_head_kernel(dev, dt, shape):
 
 
 def test_conv_wrapper_rejects_unsupported_shapes(dev):
-    x = torch.zeros(1, 4, 4, 24, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="C % 32"):
-        rh.conv3x3(x, torch.zeros(3, 3, 24, 128, device=dev), torch.zeros(128, device=dev))
+    x = torch.zeros(1, 4, 4, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 8"):
+        rh.conv3x3(x, torch.zeros(3, 3, 12, 128, device=dev), torch.zeros(128, device=dev))
+
+
+def test_bf16_convs_are_deterministic(dev):
+    """No split-K and no atomics: two calls of each bf16 kernel give the
+    same bits."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 38, 64, 256, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(3, 3, 256, 256, generator=g) / 48).to(dev)
+    b = (torch.randn(256, generator=g) * 0.1).to(dev)
+    wcr = (torch.randn(256, 15, generator=g) / 16).to(dev)
+    bcr = (torch.randn(15, generator=g) * 0.1).to(dev)
+    assert torch.equal(rh.conv3x3(x, w, b), rh.conv3x3(x, w, b))
+    assert torch.equal(rh.rpn_head(x, w, b, wcr, bcr), rh.rpn_head(x, w, b, wcr, bcr))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,C,M", [(4096, 1024, 5000), (300, 8, 77)])
+def test_gather_kernel(dev, dt, N, C, M):
+    g = torch.Generator().manual_seed(N + M)
+    table = torch.randn(N, C, generator=g).to(dev, dt)
+    idx = torch.randint(-7, N + 7, (M,), generator=g, dtype=torch.int32).to(dev)
+    before = _ext.LAUNCHES["gather"]
+    got = gather_cuda.gather_rows(table, idx)
+    assert _ext.LAUNCHES["gather"] == before + 1
+    assert torch.equal(got, gather_cuda.gather_rows_plain(table, idx))
 
 
 def _nms_inputs(seed, B, N, ties):
@@ -149,7 +178,7 @@ def test_small_predict_card_matches_cpu(dev):
     _ext.reset_launches()
     got = make_eval_step(card)(batch(dev))
     assert dict(_ext.LAUNCHES) == {"conv3x3": 4, "rpn_head": 5, "nms": 2, "roi_align": 1,
-                                   "roi_align_bwd": 0, "assign": 0}
+                                   "roi_align_bwd": 0, "assign": 0, "gather": 0}
     ref = make_eval_step(cpu)(batch("cpu"))
     gv, rv = got.valid[0].cpu(), ref.valid[0]
     assert int(gv.sum()) == int(rv.sum()) > 0
@@ -272,5 +301,5 @@ def test_small_train_step_card_matches_cpu(dev):
         state, metrics = step(state, batch.to(dev), gen)
         assert all(torch.isfinite(v).item() for v in metrics.values())
         assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 1,
-                                       "roi_align_bwd": 1, "assign": 1}
+                                       "roi_align_bwd": 1, "assign": 1, "gather": 0}
 
