@@ -14,8 +14,10 @@ Phases, each of which raises on a failed check (exit code 1):
    each check; kernel, plain-version and library times from CUDA events,
    and the least time the card could take for the same work; the conv
    kernels also at batch 16 (the train step's rpn_head), each bf16 conv
-   called twice for the same bits; the row gather (no caller) on a table
-   of 400,000 4-KB rows;
+   called twice for the same bits; proposal NMS also at the train step's
+   16 images; the RoIAlign forward also at the train step's 8,192 RoIs and
+   predict batch 16's 16,000, two calls bit for bit; the row gather (no
+   caller) on a table of 400,000 4-KB rows;
 4. slice: full-width Faster R-CNN R-50-FPN (15+5 VOC config, task 1) built
    by ``init_detector`` with seeded weights and driven by
    ``inference_detector``: bf16 at batch 1 (every predict kernel must
@@ -23,7 +25,9 @@ Phases, each of which raises on a failed check (exit code 1):
    the same weights on the CPU through the plain versions, latency and
    throughput;
 5. training kernels: the anchor assignment and the RoIAlign backward
-   against their plain versions at the batch-16 training shapes;
+   against their plain versions at the batch-16 training shapes, the
+   backward on proposal-like and sampler-like RoIs (hot tiles) at ss = 2
+   and 1, two calls bit for bit, with device time per level;
 6. train: the same model and weights trained by ``make_train_step`` with
    the optimizer ``build_train_optimizer`` builds from the config (bf16,
    batch 16, seeded images and boxes): every training kernel launches
@@ -181,6 +185,120 @@ def proposal_like_boxes(torch, g, n, canvas=CANVAS):
     return b
 
 
+def nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, max_out: int):
+    """Bytes and IoU operations this data needs, over all images: each
+    candidate up to the last pick is tested against every box kept
+    before it."""
+    _, order, nv = nms_cuda.sort_candidates(shifted, s, valid)
+    B, N = s.shape
+    nbytes = flops = 0
+    for b in range(B):
+        pos = torch.empty_like(order[b])
+        pos[order[b].long()] = torch.arange(N, dtype=pos.dtype, device=pos.device)
+        kept_pos = pos[ki[b][kv[b]].long()].sort().values
+        stop = (int(kept_pos[-1]) + 1) if int(kv[b].sum()) == max_out else int(nv[b])
+        pairs = int((stop - 1 - kept_pos).clamp(min=0).sum())
+        flops += 17 * pairs  # IoU: 6 min/max/sub + 2 clamps + 3 mul + 3 add/sub + max, div, compare
+        nbytes += N * 16 + N * 4 + 4 + max_out * 4 + 4
+    return nbytes, flops
+
+
+def sampler_like_boxes(torch, g, batch: int, per_image: int, canvas=CANVAS):
+    """Seeded RoIs shaped like the RoI sampler's output, image by image: a
+    quarter jittered around the image's 1-8 ground-truth boxes (i % 8 + 1
+    of them; the positives, which pile onto a few map tiles), the rest
+    proposal-like. Returns (batch * per_image, 4) and the batch indices."""
+    H, W = canvas
+    q = per_image // 4
+    out = []
+    for i in range(batch):
+        gt = proposal_like_boxes(torch, g, i % 8 + 1, canvas)
+        base = gt[torch.randint(0, len(gt), (q,), generator=g)]
+        size = (base[:, 2:] - base[:, :2]).repeat(1, 2)
+        pos = base + torch.randn(q, 4, generator=g) * 0.1 * size
+        pos[:, 0::2] = pos[:, 0::2].clamp(0, W)
+        pos[:, 1::2] = pos[:, 1::2].clamp(0, H)
+        out += [pos, proposal_like_boxes(torch, g, per_image - q, canvas)]
+    bidx = torch.arange(batch, dtype=torch.int32).repeat_interleave(per_image)
+    return torch.cat(out), bidx
+
+
+def roi_align_fwd_phase(torch, dev, g):
+    """The RoIAlign forward against its plain version at the main path's
+    sizes: 1000 proposals of one image (predict batch 1), 512 sampled RoIs
+    on each of 16 images (the train step), 1000 proposals on each of 16
+    (predict batch 16). bf16 and f32 at the first two, bf16 at the third;
+    two calls bit for bit; kernel time (events and profiler), plain time,
+    bound. The entry keyed ("roi_align", dtype) is the batch-1 one, with
+    the others under ``by_size``."""
+    from nsgp_repre_tpu_torch.ops import roi_align, roi_align_cuda
+
+    shapes = level_shapes()[:4]
+    gd = torch.Generator(device=dev).manual_seed(SEED + 9)
+    results = {}
+    for B, per_image, label in ((1, 1000, "predict batch 1"), (TRAIN_BATCH, 512, "train batch 16"),
+                                (16, 1000, "predict batch 16")):
+        R = B * per_image
+        if label == "train batch 16":
+            rois, bidx = sampler_like_boxes(torch, g, B, per_image)
+        else:
+            rois = proposal_like_boxes(torch, g, R)
+            bidx = torch.arange(B, dtype=torch.int32).repeat_interleave(per_image)
+        rois, bidx = rois.to(dev), bidx.to(dev)
+        if B == 1:
+            feats32 = [torch.randn(1, h, wd, C, generator=g).to(dev) for h, wd in shapes]
+        else:
+            feats32 = [torch.randn(B, h, wd, C, generator=gd, device=dev) for h, wd in shapes]
+        lin, wts = roi_align.sample_taps(shapes, B, rois, bidx, STRIDES[:4])
+        rows = int(torch.unique(lin[wts != 0]).numel())
+        del lin, wts
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            if dt == torch.float32 and label == "predict batch 16":
+                continue
+            size = 2 if dt == torch.bfloat16 else 4
+            feats = [f.to(dt) for f in feats32]
+            run = lambda: roi_align_cuda.multilevel_roi_align(  # noqa: E731
+                feats, rois, bidx, strides=STRIDES[:4])
+            plain = lambda: roi_align.multilevel_roi_align(  # noqa: E731
+                feats, rois, bidx, strides=STRIDES[:4])
+            got, again, ref = run(), run(), plain().to(dt)
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            del got, again, ref
+            if dt == torch.float32:
+                # the same f32 tap products, summed in another order
+                tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
+            else:
+                # one bf16 rounding of f32 sums that differ in order only
+                tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
+            check(f"roi_align {dt_name} {label}", err <= tol, f"max_abs_err {err} > {tol_desc}")
+            # one block per RoI, no atomics: a call gives the same bits every time
+            check(f"roi_align {dt_name} {label}", same, "two calls of the kernel differ")
+            # outputs written, RoIs and indices read, the distinct map rows the taps need
+            nbytes = R * 49 * C * size + R * 16 + R * 4 + rows * C * size
+            flops = R * 49 * 4 * (4 * 2 + 1) * C + R * 49 * C
+            bms, bby = bound(nbytes, flops, dt_name)
+            entry = dict(
+                kernel="roi_align", dtype=dt_name, case=label, R=R, launches_per_call=1,
+                kernel_ms=time_ms(torch, run, 20), device_ms=device_ms(torch, run, 5),
+                plain_ms=time_ms(torch, plain, 3 if B == 1 else 1, warmup=1),
+                library_ms=None, max_abs_err=err, tol=tol_desc, bit_identical_reruns=same,
+                bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops, feature_rows_touched=rows)
+            log(entry)
+            if B == 1:
+                results[("roi_align", dt_name)] = entry
+                entry["by_size"] = {}
+            else:
+                results[("roi_align", dt_name)]["by_size"][label] = {
+                    k: entry[k] for k in ("R", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                                          "max_abs_err")}
+        del feats32, feats
+        torch.cuda.empty_cache()
+    return results
+
+
 def conv_phase(torch, dev, g, batch: int):
     """conv3x3 (the FPN output convs, P2-P5) and rpn_head (P2-P6) on
     ``batch`` seeded maps of the canvas's levels, bf16 and f32: each kernel
@@ -310,7 +428,7 @@ def gather_phase(torch, dev):
 
 
 def kernel_phase(torch, dev):
-    from nsgp_repre_tpu_torch.ops import _ext, nms, nms_cuda, roi_align, roi_align_cuda
+    from nsgp_repre_tpu_torch.ops import _ext, nms, nms_cuda
 
     g = torch.Generator().manual_seed(SEED)
     shapes = level_shapes()
@@ -353,17 +471,9 @@ def kernel_phase(torch, dev):
                      identical_keep_lists=same))
         k_ms += time_ms(torch, lambda: nms_cuda.nms_kernel(shifted, s, valid, thr, max_out), 20)
         p_ms += time_ms(torch, lambda: nms.nms(shifted, s, valid, thr, max_out), 2, warmup=1)
-        # work this data needs: each candidate up to the last pick is
-        # tested against every box kept before it
-        sb, order, nv = nms_cuda.sort_candidates(shifted, s, valid)
-        pos = torch.empty_like(order[0])
-        pos[order[0].long()] = torch.arange(order.shape[1], dtype=pos.dtype, device=dev)
-        kept_pos = pos[ki[0][kv[0]].long()].sort().values
-        stop = (int(kept_pos[-1]) + 1) if int(kv.sum()) == max_out else int(nv[0])
-        pairs = int((stop - 1 - kept_pos).clamp(min=0).sum())
-        flops += 17 * pairs  # IoU: 6 min/max/sub + 2 clamps + 3 mul + 3 add/sub + max, div, compare
-        N = bx.shape[1]
-        nbytes += N * 16 + N * 4 + 4 + max_out * 4 + 4
+        nb, fl = nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, max_out)
+        nbytes += nb
+        flops += fl
     check("nms", nms_err_free, "kernel and plain keep lists differ")
     bms, bby = bound(nbytes, flops, "float32")
     results[("nms", "float32")] = dict(
@@ -372,40 +482,28 @@ def kernel_phase(torch, dev):
         bound_by=bby, bytes=nbytes, flops=flops)
     log(results[("nms", "float32")])
 
-    # ---- roi_align: 1000 proposal RoIs over P2-P5 of one image ----
-    rois = proposal_like_boxes(torch, g, 1000).to(dev)
-    bidx = torch.zeros(1000, dtype=torch.int32, device=dev)
-    feats32 = [torch.randn(1, h, wd, C, generator=g) for h, wd in shapes[:4]]
-    lin, wts = roi_align.sample_taps(shapes[:4], 1, rois, bidx, STRIDES[:4])
-    rows = int(torch.unique(lin[wts != 0]).numel())
-    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        size = 2 if dt == torch.bfloat16 else 4
-        feats = [f.to(dev, dt) for f in feats32]
-        got = roi_align_cuda.multilevel_roi_align(feats, rois, bidx, strides=STRIDES[:4])
-        ref = roi_align.multilevel_roi_align(feats, rois, bidx, strides=STRIDES[:4]).to(dt)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        if dt == torch.float32:
-            # the same f32 tap products, summed in another order
-            tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
-        else:
-            # one bf16 rounding of f32 sums that differ in order only
-            tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
-        check(f"roi_align {dt_name}", err <= tol, f"max_abs_err {err} > {tol_desc}")
-        R = rois.shape[0]
-        nbytes = R * 49 * C * size + R * 16 + R * 4 + rows * C * size
-        flops = R * 49 * 4 * (4 * 2 + 1) * C + R * 49 * C
-        bms, bby = bound(nbytes, flops, dt_name)
-        results[("roi_align", dt_name)] = dict(
-            kernel="roi_align", dtype=dt_name, launches_per_predict=1,
-            kernel_ms=time_ms(torch, lambda: roi_align_cuda.multilevel_roi_align(
-                feats, rois, bidx, strides=STRIDES[:4]), 20),
-            plain_ms=time_ms(torch, lambda: roi_align.multilevel_roi_align(
-                feats, rois, bidx, strides=STRIDES[:4]), 3),
-            library_ms=None, max_abs_err=err, tol=tol_desc, bound_ms=bms, bound_by=bby,
-            bytes=nbytes, flops=flops, feature_rows_touched=rows)
-        log(results[("roi_align", dt_name)])
+    # ---- nms at the train step's proposal call: 16 images x 8304 candidates ----
+    B = TRAIN_BATCH
+    boxes = proposal_like_boxes(torch, g, B * n).reshape(B, n, 4).to(dev)
+    s = torch.rand(B, n, generator=g).to(dev)
+    ids = lvls[None].expand(B, n).contiguous().to(dev)
+    valid = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
+    shifted = nms.offset_boxes(boxes, ids, valid)
+    ki, kv = nms_cuda.nms_kernel(shifted, s, valid, 0.7, 1000)
+    pi, pv = nms.nms(shifted[:1], s[:1], valid[:1], 0.7, 1000)  # the plain version: one image
+    same = torch.equal(kv[:1], pv) and torch.equal(ki[:1][kv[:1]], pi[pv])
+    check("nms train shape", same, "kernel and plain keep lists differ (image 0)")
+    nbytes, flops = nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, 1000)
+    bms, bby = bound(nbytes, flops, "float32")
+    run = lambda: nms_cuda.nms_kernel(shifted, s, valid, 0.7, 1000)  # noqa: E731
+    results[("nms", "float32", TRAIN_BATCH)] = dict(
+        kernel="nms", dtype="float32", batch=B, candidates_per_image=n, launches_per_step=1,
+        kernel_ms=time_ms(torch, run, 10), device_ms=device_ms(torch, run, 5),
+        kept_per_image=kv.sum(1).tolist(), identical_keep_lists_image0=same,
+        bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+    log(results[("nms", "float32", TRAIN_BATCH)])
+
+    results.update(roi_align_fwd_phase(torch, dev, g))
     _ext.reset_launches()  # comparison launches are not main-path launches
     return results
 
@@ -523,7 +621,10 @@ def profile_call(torch, fn, label: str) -> None:
     check(f"profile {label}", busy > 0, "no device time recorded")
     log({"phase": f"profile {label}", "wall_ms": wall, "device_ms": busy,
          "idle_share": 1 - busy / wall,
-         "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:15]]})
+         "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:15]],
+         # the port's own kernels (csrc/*.cu, all in anonymous namespaces)
+         "port_kernels": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows if k.startswith(
+             ("(anonymous namespace)::", "void (anonymous namespace)::"))]})
 
 
 def slice_phase(torch, card: str):
@@ -673,48 +774,87 @@ def train_kernel_phase(torch, dev):
         flops_if_padded_slots_counted=B * G * N * (2 * IOU_FLOPS + 3) + B * N * 16)
     log(results[("assign", "float32")])
 
-    # ---- roi_align_bwd: 512 sampled RoIs per image over P2-P5 of 16 images ----
+    # ---- roi_align_bwd: 512 RoIs per image over P2-P5 of 16 images, on two
+    # RoI sets (proposal-like; sampler-like, whose positives pile onto hot
+    # tiles), at ss = 2 (the student) and ss = 1 (the teacher's grid) ----
     R = 512 * B
-    rois = proposal_like_boxes(torch, g, R).to(dev)
-    bidx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(512)
     level_hw = shapes[:4]
     rows = B * sum(h * w for h, w in level_hw)
+    sets = {"proposals": (proposal_like_boxes(torch, g, R),
+                          torch.arange(B, dtype=torch.int32).repeat_interleave(512)),
+            "sampler": sampler_like_boxes(torch, g, B, 512)}
     g32 = torch.randn(R, 7, 7, C, generator=g)
-    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        size = 2 if dt == torch.bfloat16 else 4
-        gout = g32.to(dev, dt)
+    for set_name, (rois, bidx) in sets.items():
+        rois, bidx = rois.to(dev), bidx.to(dev)
+        lvl = roi_align.map_roi_levels(rois, 4)
+        for ss in (2, 1):
+            # the binning pass's footprints against their plain rule
+            kf = roi_align_cuda.roi_footprints(level_hw, rois, STRIDES[:4], sampling_ratio=ss)
+            pf = roi_align.roi_footprints(level_hw, rois, STRIDES[:4], sampling_ratio=ss)
+            check(f"roi footprints {set_name} ss={ss}",
+                  all(torch.equal(a, b) for a, b in zip(kf, pf)), "kernel and plain rule differ")
+            for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+                size = 2 if dt == torch.bfloat16 else 4
+                gout = g32.to(dev, dt)
 
-        def kernel(gout=gout, dt=dt):
-            return roi_align_cuda.multilevel_roi_align_backward(
-                gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4])
+                def kernel(gout=gout, dt=dt, rois=rois, bidx=bidx, ss=ss):
+                    return roi_align_cuda.multilevel_roi_align_backward(
+                        gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4], sampling_ratio=ss)
 
-        def plain(gout=gout, dt=dt):
-            return roi_align.multilevel_roi_align_backward(
-                gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4])
+                def plain(gout=gout, dt=dt, rois=rois, bidx=bidx, ss=ss):
+                    return roi_align.multilevel_roi_align_backward(
+                        gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4], sampling_ratio=ss)
 
-        got, ref = kernel(), plain()
-        again = kernel()
-        torch.cuda.synchronize()
-        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
-        scale = max(y.float().abs().max().item() for y in ref)
-        rerun = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, again))
-        if dt == torch.float32:
-            # f32 sums of the same tap products; the atomics add them in
-            # another order, which also differs from run to run
-            tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
-        else:
-            # one bf16 rounding of f32 sums that differ in order only
-            tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
-        check(f"roi_align_bwd {dt_name}", err <= tol, f"max_abs_err {err} > {tol_desc}")
-        flops = R * 49 * 4 * 4 * 2 * C + R * 49 * C
-        nbytes = R * 49 * C * size + R * 16 + R * 4 + rows * C * size
-        bms, bby = bound(nbytes, flops, dt_name)
-        results[("roi_align_bwd", dt_name)] = dict(
-            kernel="roi_align_bwd", dtype=dt_name, launches_per_step=1,
-            kernel_ms=time_ms(torch, kernel, 10), plain_ms=time_ms(torch, plain, 2, warmup=1),
-            library_ms=None, max_abs_err=err, tol=tol_desc, run_to_run_max_abs_diff=rerun,
-            bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops, level_grad_rows=rows)
-        log(results[("roi_align_bwd", dt_name)])
+                got, again, ref = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+                scale = max(y.float().abs().max().item() for y in ref)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                del got, again, ref
+                if dt == torch.float32:
+                    # f32 sums of the same tap products, in another order
+                    tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
+                else:
+                    # one bf16 rounding of f32 sums that differ in order only
+                    tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
+                label = f"roi_align_bwd {dt_name} {set_name} ss={ss}"
+                check(label, err <= tol, f"max_abs_err {err} > {tol_desc}")
+                # each output summed by one thread in RoI order, no atomics
+                check(label, same, "two calls of the kernel differ")
+                flops = R * 49 * ss * ss * 4 * 2 * C + R * 49 * C
+                nbytes = R * 49 * C * size + R * 16 + R * 4 + rows * C * size
+                bms, bby = bound(nbytes, flops, dt_name)
+                entry = dict(
+                    kernel="roi_align_bwd", dtype=dt_name, rois=set_name, sampling_ratio=ss,
+                    launches_per_step=1, max_abs_err=err, tol=tol_desc, bit_identical_reruns=same,
+                    library_ms=None, bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops,
+                    level_grad_rows=rows, rois_by_level=torch.bincount(lvl, minlength=4).tolist())
+                if dt == torch.bfloat16 or (set_name == "proposals" and ss == 2):
+                    entry.update(kernel_ms=time_ms(torch, kernel, 10),
+                                 device_ms=device_ms(torch, kernel, 5),
+                                 plain_ms=time_ms(torch, plain, 2, warmup=1))
+                if dt == torch.bfloat16 and ss == 2:
+                    # the RoIs of one level at a time: the tiles of that level
+                    # (the other levels' blocks find no RoI and write zeros)
+                    def one_level(i, gout=gout, dt=dt, rois=rois, bidx=bidx):
+                        m = lvl == i
+                        gm, rm, bm = gout[m], rois[m], bidx[m]
+                        return device_ms(
+                            torch, lambda: roi_align_cuda.multilevel_roi_align_backward(
+                                gm, rm, bm, level_hw, B, dt, strides=STRIDES[:4]), 5)
+
+                    entry["device_ms_by_level"] = [one_level(i) for i in range(4)]
+                log(entry)
+                key = ("roi_align_bwd", dt_name)
+                if set_name == "proposals" and ss == 2:
+                    results[key] = entry
+                    entry["cases"] = {}
+                else:
+                    main = results[key]
+                    main["max_abs_err"] = max(main["max_abs_err"], err)
+                    main["cases"][f"{set_name} ss={ss}"] = {
+                        k: entry[k] for k in ("kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                                              "max_abs_err", "device_ms_by_level") if k in entry}
     _ext.reset_launches()  # comparison launches are not main-path launches
     return results
 
@@ -863,8 +1003,8 @@ def train_phase(torch, card: str, state):
     card_rel = grad_rel(got_g, ref_g)
     # each gradient within 4x its module group's noise floor: cuDNN and the
     # CPU sum the f32 convs in other orders, forward and backward, and the
-    # atomics of the RoIAlign backward add in any order, each an ulp-sized
-    # perturbation. The sampled anchors and RoIs are the same (same
+    # RoIAlign backward sums its taps in another order than index_add_,
+    # each an ulp-sized perturbation. The sampled anchors and RoIs are the same (same
     # priorities, the card's proposals on both sides). rpn_conv alone may
     # also take 5e-3 of its largest magnitude for each ReLU of the sparse
     # head that the two devices decided differently (counted above): a
@@ -951,8 +1091,17 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "dtype": r["dtype"],
             })
-            if "device_ms" in r:  # the conv kernels: device time beside the eager calls'
-                kernels[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
+            if "device_ms" in r:  # device time beside the eager calls
+                kernels[-1]["device_ms"] = r["device_ms"]
+            for k in ("by_size", "cases"):  # roi_align at train / batch-16 sizes; roi_align_bwd's sets
+                if k in r:
+                    kernels[-1][k] = r[k]
+            if name == "nms":  # the train step's call: 16 images
+                r16 = results[("nms", "float32", TRAIN_BATCH)]
+                kernels[-1]["batch16"] = {k: r16[k] for k in ("bound_ms", "device_ms")} | {
+                    "ms": r16["kernel_ms"]}
+            if "library_device_ms" in r:  # the conv kernels, also at batch 16
+                kernels[-1]["library_device_ms"] = r["library_device_ms"]
                 r16 = results[(name, "bfloat16", TRAIN_BATCH)]  # 16 images (the train step's rpn_head)
                 kernels[-1]["batch16"] = {k: r16[k] for k in (
                     "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms",

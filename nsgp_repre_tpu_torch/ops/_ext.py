@@ -52,8 +52,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P,
     ],
     "nsgp_roi_align_bwd": [
-        _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P,
     ],
+    "nsgp_roi_footprints": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
     "nsgp_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "nsgp_gather": [_P, _P, _P, _L, _I, _I, _P],
 }

@@ -192,3 +192,54 @@ def multilevel_roi_align_backward(
         out.append(acc[off:off + n].reshape(batch_size, h, wd, C).to(dtype))
         off += n
     return out
+
+
+def roi_footprints(
+    level_hw: Sequence[Tuple[int, int]],
+    rois: torch.Tensor,
+    strides: Sequence[int] = (4, 8, 16, 32),
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    finest_scale: float = 56.0,
+    aligned: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The binning rule of the backward kernel: each RoI's level (R,) and
+    the rows and columns of that level its taps can reach, (R, 4) int64
+    ``[y_lo, y_hi, x_lo, x_hi]`` inclusive: from the smallest to the
+    largest corner index of its samples inside the map (zero-weight
+    corners included, so every nonzero tap of :func:`sample_taps` lies
+    inside), or ``[0, -1, 0, -1]`` when every sample of an axis lies
+    outside. Sample coordinates as in :func:`sample_taps`."""
+    L = len(level_hw)
+    dev = rois.device
+    rois = rois.float()
+    ss = sampling_ratio
+    lvl = map_roi_levels(rois, L, finest_scale)
+
+    def tab(vals):
+        return torch.tensor(vals, dtype=torch.float32, device=dev)[lvl]
+
+    scale = tab([1.0 / s for s in strides[:L]])
+    offset = 0.5 if aligned else 0.0
+    n = output_size * ss
+    k = torch.arange(n, device=dev)
+    gpos = (k // ss).float() + _div((k % ss).float() + 0.5, ss)
+
+    def axis(lo_edge, hi_edge, extent):
+        size = extent[:, None]
+        v = (lo_edge * scale - offset)[:, None] + gpos[None, :] * _div((hi_edge - lo_edge) * scale,
+                                                                       output_size)[:, None]
+        outside = (v < -1.0) | (v > size)
+        v = torch.minimum(torch.clamp(v, min=0.0), size - 1.0)
+        v0 = torch.floor(v)
+        v1 = torch.minimum(v0 + 1.0, size - 1.0)
+        lo = torch.where(outside, torch.iinfo(torch.int64).max, v0.long()).amin(1)
+        hi = torch.where(outside, -1, v1.long()).amax(1)
+        return lo, hi
+
+    y_lo, y_hi = axis(rois[:, 1], rois[:, 3], tab([float(h) for h, _ in level_hw]))
+    x_lo, x_hi = axis(rois[:, 0], rois[:, 2], tab([float(w) for _, w in level_hw]))
+    box = torch.stack([y_lo, y_hi, x_lo, x_hi], 1)
+    empty = (y_lo > y_hi) | (x_lo > x_hi)
+    box[empty] = torch.tensor([0, -1, 0, -1], dtype=box.dtype, device=dev)
+    return lvl, box

@@ -10,7 +10,7 @@ Tolerances are those of chip_smoke.py: f32 within 1e-4 (convs) or 1e-5
 (RoIAlign forward and backward) of the largest magnitude, bf16 within a
 couple of bf16 ulps of it, NMS keep lists, anchor assignments and
 gathered rows identical, the assignment's IoUs bit-equal; the bf16
-convs give the same bits on every call.
+convs and both RoIAlign kernels give the same bits on every call.
 """
 import numpy as np
 import pytest
@@ -244,6 +244,119 @@ def test_roi_align_bwd_kernel(dev, dt):
     assert _ext.LAUNCHES["roi_align_bwd"] == before + 2
     for f, y in zip(feats, got):
         _close(f.grad, y, dt, f32_rel=1e-5)
+
+
+def _roi_set(g, kind, B, R, H, W):
+    """RoIs of ``kind``: proposal-like, or a quarter jittered around 1-8
+    ground-truth boxes per image (the sampler's positives; hot tiles) and
+    the rest proposal-like."""
+    xy = torch.rand(R, 2, generator=g) * torch.tensor([W, H]) - 10
+    side = torch.exp(torch.rand(R, 2, generator=g) * 4.5 + 2)
+    rois = torch.cat([xy, xy + side], -1)
+    bidx = torch.randint(0, B, (R,), generator=g, dtype=torch.int32)
+    if kind == "clustered":
+        gxy = torch.rand(B, 8, 2, generator=g) * torch.tensor([W, H]) * 0.8
+        gt = torch.cat([gxy, gxy + torch.rand(B, 8, 2, generator=g) * 150 + 20], -1)
+        n_gt = torch.randint(1, 9, (B,), generator=g)
+        q = R // 4
+        pick = (torch.rand(q, generator=g) * n_gt[bidx[:q].long()]).long()
+        base = gt[bidx[:q].long(), pick]
+        size = (base[:, 2:] - base[:, :2]).repeat(1, 2)
+        rois[:q] = base + torch.randn(q, 4, generator=g) * 0.1 * size
+    return rois, bidx
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,ss,R", [("clustered", 2, 600), ("proposals", 1, 300),
+                                       ("clustered", 1, 600), ("proposals", 2, 0)])
+def test_roi_align_bwd_kernel_cases(dev, dt, kind, ss, R):
+    """The backward kernel against the plain backward on clustered RoIs,
+    at ss = 1 (the teacher's sample grid) and with no RoI at all (zero
+    gradients); two calls give the same bits."""
+    g = torch.Generator().manual_seed(7 + R + ss)
+    B, C, H, W = 3, 256, 160, 224
+    level_hw = [(H // s, W // s) for s in (4, 8, 16, 32)]
+    rois, bidx = _roi_set(g, kind, B, R, H, W)
+    rois, bidx = rois.to(dev), bidx.to(dev)
+    gout = torch.randn(R, 7, 7, C, generator=g).to(dev, dt)
+    got = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt,
+                                                       sampling_ratio=ss)
+    again = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt,
+                                                         sampling_ratio=ss)
+    for x, z, hw in zip(got, again, level_hw):
+        assert x.dtype == dt and x.shape == (B, *hw, C)
+        assert torch.equal(x, z)
+    if R == 0:  # (the plain version takes R >= 1)
+        assert not any(x.any() for x in got)
+        return
+    ref = roi_align.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt,
+                                                  sampling_ratio=ss)
+    for x, y in zip(got, ref):
+        if dt == torch.float32:
+            _close(x, y, dt, f32_rel=1e-5)
+        else:
+            assert (x.float() - y.float()).abs().max().item() <= 2 ** -7 * y.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_roi_align_kernels_are_deterministic(dev, dt):
+    """No atomics on data: two calls of the forward and of the backward
+    give the same bits."""
+    g = torch.Generator().manual_seed(5)
+    B, C, H, W = 2, 256, 160, 224
+    level_hw = [(H // s, W // s) for s in (4, 8, 16, 32)]
+    rois, bidx = _roi_set(g, "clustered", B, 400, H, W)
+    rois, bidx = rois.to(dev), bidx.to(dev)
+    feats = [torch.randn(B, h, w, C, generator=g).to(dev, dt) for h, w in level_hw]
+    gout = torch.randn(400, 7, 7, C, generator=g).to(dev, dt)
+    assert torch.equal(roi_align_cuda.roi_align_forward(feats, rois, bidx),
+                       roi_align_cuda.roi_align_forward(feats, rois, bidx))
+    a = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt)
+    b = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_roi_align_kernel_train_shape(dev, dt):
+    """The forward at the training step's shape: 512 RoIs on each of 16
+    608x1024 canvases, batch indices in any order."""
+    g = torch.Generator().manual_seed(6)
+    B, C, H, W = 16, 256, 608, 1024
+    level_hw = [(H // s, W // s) for s in (4, 8, 16, 32)]
+    rois, bidx = _roi_set(g, "clustered", B, 512 * B, H, W)
+    rois, bidx = rois.to(dev), bidx.to(dev)
+    feats = [torch.randn(B, h, w, C, generator=g).to(dev, dt) for h, w in level_hw]
+    got = roi_align_cuda.multilevel_roi_align(feats, rois, bidx)
+    ref = roi_align.multilevel_roi_align(feats, rois, bidx).to(dt)
+    if dt == torch.float32:
+        _close(got, ref, dt, f32_rel=1e-5)
+    else:
+        assert (got.float() - ref.float()).abs().max().item() <= 2 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_roi_footprints_kernel_matches_plain(dev, ss):
+    """The backward's binning rule on the card equals its plain version."""
+    g = torch.Generator().manual_seed(8)
+    level_hw = [(152, 256), (76, 128), (38, 64), (19, 32)]
+    rois, _ = _roi_set(g, "clustered", 4, 2000, 608, 1024)
+    rois[:50] = rois[:50] * 3 - 900  # some wholly outside
+    rois[50:60, 2:] = rois[50:60, :2]  # zero area
+    rois = rois.to(dev)
+    lk, bk = roi_align_cuda.roi_footprints(level_hw, rois, sampling_ratio=ss)
+    lp, bp = roi_align.roi_footprints(level_hw, rois, sampling_ratio=ss)
+    assert torch.equal(lk, lp) and torch.equal(bk, bp)
+
+
+def test_roi_align_wrappers_reject_unsupported_shapes(dev):
+    rois = torch.tensor([[0.0, 0.0, 20.0, 20.0]], device=dev)
+    bidx = torch.zeros(1, dtype=torch.int32, device=dev)
+    feats = [torch.zeros(1, 8, 8, 12, device=dev, dtype=torch.bfloat16)]
+    with pytest.raises(ValueError, match="C % 8"):
+        roi_align_cuda.roi_align_forward(feats, rois, bidx, strides=(4,))
+    gout = torch.zeros(1, 7, 7, 48, device=dev)
+    with pytest.raises(ValueError, match="C % 32"):
+        roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, [(8, 8)], 1, strides=(4,))
 
 
 def test_forward_only_kernels_refuse_grad(dev):

@@ -17,7 +17,8 @@ from nsgp_repre_tpu.ops.roi_align_pallas import (multilevel_roi_align_bwd_pallas
                                                   multilevel_roi_align_pallas, route_levels)
 
 from nsgp_repre_tpu_torch.ops.roi_align import (map_roi_levels, multilevel_roi_align,
-                                                multilevel_roi_align_backward)
+                                                multilevel_roi_align_backward, roi_footprints,
+                                                sample_taps)
 from nsgp_repre_tpu_torch.ops.roi_align_cuda import multilevel_roi_align as roi_align_wrapper
 
 STRIDES = (4, 8, 16, 32)
@@ -169,3 +170,49 @@ def test_backward_plain_matches_pallas_bwd_interpret():
     got = multilevel_roi_align_backward(_t(g), _t(r), _t(b), level_hw, 2, strides=STRIDES)
     for x, y in zip(got, ref):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("ss", [1, 2])
+def test_footprints_hold_every_tap(ss):
+    """The backward kernel's binning rule: every nonzero-weight tap of a
+    RoI lies on the RoI's level, inside its footprint; a RoI whose
+    samples all lie outside the map has an empty footprint and no tap.
+    RoIs partly and wholly outside the map, tiny, zero-area, elongated."""
+    rng = np.random.RandomState(11 + ss)
+    H, W = 256, 384
+    level_hw = [(H // s, W // s) for s in STRIDES]
+    R = 160
+    x1 = rng.uniform(-300, W + 50, R)
+    y1 = rng.uniform(-300, H + 50, R)
+    side = np.exp(rng.uniform(np.log(0.3), np.log(900), (R, 2)))
+    side[:20, 0] = rng.uniform(500, 900, 20)  # elongated
+    side[:20, 1] = rng.uniform(0.5, 3, 20)
+    side[20:40, 1] = rng.uniform(500, 900, 20)
+    side[20:40, 0] = rng.uniform(0.5, 3, 20)
+    rois = np.stack([x1, y1, x1 + side[:, 0], y1 + side[:, 1]], -1).astype(np.float32)
+    rois[40] = [0, 0, 0, 0]  # zero area at the origin
+    rois[41] = [50, 60, 50, 90]  # zero width
+    rois[42] = [-900, -900, -600, -600]  # wholly outside
+    rois[43] = [W + 10, 5, W + 400, 300]
+    rois[44] = [W - 0.5, H - 0.5, W + 0.5, H + 0.5]  # a corner of the map
+    rois[45] = [-2, -2, 1, 1]
+    rois = _t(rois)
+    bidx = torch.zeros(R, dtype=torch.int32)
+    lvl, box = roi_footprints(level_hw, rois, STRIDES, 7, ss)
+    np.testing.assert_array_equal(lvl.numpy(), map_roi_levels(rois, 4).numpy())
+    lin, w = sample_taps(level_hw, 1, rois, bidx, STRIDES, 7, ss)
+    offs = np.cumsum([0] + [h * wd for h, wd in level_hw])
+    hit = w != 0
+    empty = box[:, 0] > box[:, 1]
+    assert not hit[empty].any()
+    assert 10 < int(empty.sum()) < R - 40  # both kinds present
+    for r in range(R):
+        taps = lin[r][hit[r]].numpy()
+        if taps.size == 0:
+            continue
+        lv = int(np.searchsorted(offs, taps.max(), side="right") - 1)
+        assert (taps >= offs[lv]).all() and lv == int(lvl[r])
+        y, x = np.divmod(taps - offs[lv], level_hw[lv][1])
+        y_lo, y_hi, x_lo, x_hi = box[r].tolist()
+        assert y_lo <= y.min() and y.max() <= y_hi and x_lo <= x.min() and x.max() <= x_hi, r
+        assert 0 <= y_lo and y_hi < level_hw[lv][0] and 0 <= x_lo and x_hi < level_hw[lv][1]
