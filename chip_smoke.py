@@ -14,8 +14,11 @@ Phases, each of which raises on a failed check (exit code 1):
    each check; kernel, plain-version and library times from CUDA events,
    and the least time the card could take for the same work; the conv
    kernels also at batch 16 (the train step's rpn_head), each bf16 conv
-   called twice for the same bits; proposal NMS also at the train step's
-   16 images; the RoIAlign forward also at the train step's 8,192 RoIs and
+   called twice for the same bits; NMS, two calls bit for bit, also at the
+   train step's proposal call (16 images x 8,304) and predict batch 16's
+   multiclass call (16 x 20,000), every image against the plain version,
+   with the IoUs its walk evaluated (counted on the card); the RoIAlign
+   forward also at the train step's 8,192 RoIs and
    predict batch 16's 16,000, two calls bit for bit; the row gather (no
    caller) on a table of 400,000 4-KB rows;
 4. slice: full-width Faster R-CNN R-50-FPN (15+5 VOC config, task 1) built
@@ -24,7 +27,8 @@ Phases, each of which raises on a failed check (exit code 1):
    launch) and at batch 16, the batch-1 f32 result on the card against
    the same weights on the CPU through the plain versions, latency and
    throughput;
-5. training kernels: the anchor assignment and the RoIAlign backward
+5. training kernels: the anchor assignment (two calls bit for bit, its
+   device time) and the RoIAlign backward
    against their plain versions at the batch-16 training shapes, the
    backward on proposal-like and sampler-like RoIs (hot tiles) at ss = 2
    and 1, two calls bit for bit, with device time per level;
@@ -132,22 +136,29 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int) -> float:
+def device_ms(torch, fn, iters: int, only: str = "") -> float:
     """Mean device time of one call of ``fn``: the device-side events
     (kernels, copies) torch.profiler records over ``iters`` calls after a
-    warm-up call, summed, without the host's launch gaps between them."""
+    warm-up call, summed, without the host's launch gaps between them;
+    with ``only``, the events whose name holds it. A profile that comes
+    back without device events (seen once in many back-to-back profiles
+    on the H100 host) is taken again, up to three times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity")
-                and not getattr(e, "is_user_annotation", False))
+    total = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity")
+                    and not getattr(e, "is_user_annotation", False) and only in e.key)
+        if total > 0:
+            break
     check("device_ms", total > 0, "no device time recorded")
     return total / 1e3 / iters
 
@@ -188,19 +199,51 @@ def proposal_like_boxes(torch, g, n, canvas=CANVAS):
 def nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, max_out: int):
     """Bytes and IoU operations this data needs, over all images: each
     candidate up to the last pick is tested against every box kept
-    before it."""
+    before it. Also the pairs that makes (reckoned from the keep list)."""
     _, order, nv = nms_cuda.sort_candidates(shifted, s, valid)
     B, N = s.shape
-    nbytes = flops = 0
+    nbytes = pairs = 0
     for b in range(B):
         pos = torch.empty_like(order[b])
         pos[order[b].long()] = torch.arange(N, dtype=pos.dtype, device=pos.device)
         kept_pos = pos[ki[b][kv[b]].long()].sort().values
         stop = (int(kept_pos[-1]) + 1) if int(kv[b].sum()) == max_out else int(nv[b])
-        pairs = int((stop - 1 - kept_pos).clamp(min=0).sum())
-        flops += 17 * pairs  # IoU: 6 min/max/sub + 2 clamps + 3 mul + 3 add/sub + max, div, compare
+        pairs += int((stop - 1 - kept_pos).clamp(min=0).sum())
         nbytes += N * 16 + N * 4 + 4 + max_out * 4 + 4
-    return nbytes, flops
+    # IoU: 6 min/max/sub + 2 clamps + 3 mul + 3 add/sub + max, div, compare
+    return nbytes, 17 * pairs, pairs
+
+
+def nms_case(torch, nms, nms_cuda, shifted, s, valid, thr: float, max_out: int, label: str):
+    """The NMS kernel on one batched call against the plain version on
+    every image (valid slots and the zeros of unused ones), two calls bit
+    for bit, with its times, bound, and the IoUs its walk evaluated,
+    counted on the card by the walk's counting instantiation."""
+    ki, kv = nms_cuda.nms_kernel(shifted, s, valid, thr, max_out)
+    again = nms_cuda.nms_kernel(shifted, s, valid, thr, max_out)
+    ci, cv, ious = nms_cuda.count_ious(shifted, s, valid, thr, max_out)
+    pi, pv = nms.nms(shifted, s, valid, thr, max_out)
+    torch.cuda.synchronize()
+    same = torch.equal(kv, pv) and torch.equal(ki, pi)
+    check(f"nms {label}", same, "kernel and plain keep lists differ")
+    rerun = all(torch.equal(x, y) for x, y in ((again[0], ki), (again[1], kv), (ci, ki), (cv, kv)))
+    check(f"nms {label}", rerun, "two calls of the kernel (or its counting build) differ")
+    nbytes, flops, pairs = nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, max_out)
+    bms, bby = bound(nbytes, flops, "float32")
+    run = lambda: nms_cuda.nms_kernel(shifted, s, valid, thr, max_out)  # noqa: E731
+    B, N = s.shape
+    entry = dict(
+        kernel="nms", dtype="float32", case=label, batch=B, candidates_per_image=N,
+        iou_threshold=thr, max_out=max_out, kernel_ms=time_ms(torch, run, 10),
+        # the whole call (the wrapper's sort included), and csrc/nms.cu's kernels alone
+        device_ms=device_ms(torch, run, 5), nms_kernels_device_ms=device_ms(torch, run, 5, "::nms_"),
+        valid_per_image=valid.sum(1).tolist(),
+        kept_per_image=kv.sum(1).tolist(), identical_keep_lists_all_images=same,
+        bit_identical_reruns=rerun, bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops,
+        ious_evaluated=ious, greedy_pairs_reckoned=pairs,
+        upper_triangle_pairs=B * N * (N - 1) // 2)
+    log(entry)
+    return entry
 
 
 def sampler_like_boxes(torch, g, batch: int, per_image: int, canvas=CANVAS):
@@ -452,32 +495,28 @@ def kernel_phase(torch, dev):
     mscores = torch.softmax(torch.randn(1000, 21, generator=g) * 3, -1)[:, :20].reshape(-1)
     labels = torch.arange(20, dtype=torch.int32).repeat(1000)
     cases.append(("multiclass", mboxes, mscores, labels, mscores > 0.05, 0.5, 100))
-    nms_err_free = True
-    k_ms = p_ms = 0.0
+    k_ms = p_ms = d_ms = 0.0
     nbytes = flops = 0
     for label, bx, sc, ids, valid, thr, max_out in cases:
         bx, ids, valid = bx[None].to(dev), ids[None].to(dev), valid[None].to(dev)
+        shifted = nms.offset_boxes(bx, ids, valid)
         for score_kind in ("float32", "bfloat16"):
             # bf16-valued scores tie often: exercises the tie order
             s = sc[None].to(dev)
             if score_kind == "bfloat16":
                 s = s.to(torch.bfloat16).float()
-            shifted = nms.offset_boxes(bx, ids, valid)
-            ki, kv = nms_cuda.nms_kernel(shifted, s, valid, thr, max_out)
-            pi, pv = nms.nms(shifted, s, valid, thr, max_out)
-            same = torch.equal(kv, pv) and torch.equal(ki[kv], pi[pv])
-            nms_err_free &= same
-            log(dict(kernel="nms", case=label, scores=score_kind, kept=int(kv.sum()),
-                     identical_keep_lists=same))
-        k_ms += time_ms(torch, lambda: nms_cuda.nms_kernel(shifted, s, valid, thr, max_out), 20)
+            r = nms_case(torch, nms, nms_cuda, shifted, s, valid, thr, max_out,
+                         f"batch 1 {label} {score_kind} scores")
+        # the batch-1 row: each case's call on bf16-valued scores
+        k_ms += r["kernel_ms"]
+        d_ms += r["device_ms"]
         p_ms += time_ms(torch, lambda: nms.nms(shifted, s, valid, thr, max_out), 2, warmup=1)
-        nb, fl = nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, max_out)
-        nbytes += nb
-        flops += fl
-    check("nms", nms_err_free, "kernel and plain keep lists differ")
+        nbytes += r["bytes"]
+        flops += r["flops"]
     bms, bby = bound(nbytes, flops, "float32")
     results[("nms", "float32")] = dict(
-        kernel="nms", dtype="float32", launches_per_predict=2, kernel_ms=k_ms, plain_ms=p_ms,
+        kernel="nms", dtype="float32", launches_per_predict=2, kernel_ms=k_ms, device_ms=d_ms,
+        plain_ms=p_ms,
         library_ms=None, max_abs_err=0.0, tol="identical keep lists", bound_ms=bms,
         bound_by=bby, bytes=nbytes, flops=flops)
     log(results[("nms", "float32")])
@@ -489,19 +528,21 @@ def kernel_phase(torch, dev):
     ids = lvls[None].expand(B, n).contiguous().to(dev)
     valid = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
     shifted = nms.offset_boxes(boxes, ids, valid)
-    ki, kv = nms_cuda.nms_kernel(shifted, s, valid, 0.7, 1000)
-    pi, pv = nms.nms(shifted[:1], s[:1], valid[:1], 0.7, 1000)  # the plain version: one image
-    same = torch.equal(kv[:1], pv) and torch.equal(ki[:1][kv[:1]], pi[pv])
-    check("nms train shape", same, "kernel and plain keep lists differ (image 0)")
-    nbytes, flops = nms_work(torch, nms_cuda, shifted, s, valid, ki, kv, 1000)
-    bms, bby = bound(nbytes, flops, "float32")
-    run = lambda: nms_cuda.nms_kernel(shifted, s, valid, 0.7, 1000)  # noqa: E731
-    results[("nms", "float32", TRAIN_BATCH)] = dict(
-        kernel="nms", dtype="float32", batch=B, candidates_per_image=n, launches_per_step=1,
-        kernel_ms=time_ms(torch, run, 10), device_ms=device_ms(torch, run, 5),
-        kept_per_image=kv.sum(1).tolist(), identical_keep_lists_image0=same,
-        bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
-    log(results[("nms", "float32", TRAIN_BATCH)])
+    results[("nms", "float32", TRAIN_BATCH)] = nms_case(
+        torch, nms, nms_cuda, shifted, s, valid, 0.7, 1000, "train call")
+
+    # ---- nms at predict batch 16's multiclass call: 1000 RoIs x 20 classes
+    # on each of 16 images, bf16-valued scores (ties), score > 0.05 valid ----
+    gm = torch.Generator().manual_seed(SEED + 11)  # its own: later phases keep their inputs
+    rois = proposal_like_boxes(torch, gm, B * 1000).reshape(B, 1000, 1, 4)
+    mboxes = (rois + torch.randn(B, 1000, 20, 4, generator=gm) * 4).reshape(B, -1, 4).to(dev)
+    mscores = torch.softmax(torch.randn(B, 1000, 21, generator=gm) * 3, -1)[..., :20]
+    s = mscores.reshape(B, -1).to(torch.bfloat16).float().to(dev)
+    labels = torch.arange(20, dtype=torch.int32).repeat(B, 1000).to(dev)
+    valid = s > 0.05
+    shifted = nms.offset_boxes(mboxes, labels, valid)
+    results[("nms", "float32", "multiclass16")] = nms_case(
+        torch, nms, nms_cuda, shifted, s, valid, 0.5, 100, "predict batch 16 multiclass")
 
     results.update(roi_align_fwd_phase(torch, dev, g))
     _ext.reset_launches()  # comparison launches are not main-path launches
@@ -598,10 +639,14 @@ def check_detections(name, dets, n_images, num_active=15):
 def profile_call(torch, fn, label: str) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     sum of device time against the host-clock wall time, and the idle
-    share. A profile without device time fails the run."""
+    share; the copies' share of the device time (the host-to-device copy
+    of pageable images varies with the host) and the call's peak memory.
+    A profile without device time fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -618,9 +663,11 @@ def profile_call(torch, fn, label: str) -> None:
             rows.append((d / 1e3, e.count, e.key[:80]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    copies = sum(r[0] for r in rows if r[2].startswith(("Memcpy", "Memset")))
     check(f"profile {label}", busy > 0, "no device time recorded")
     log({"phase": f"profile {label}", "wall_ms": wall, "device_ms": busy,
-         "idle_share": 1 - busy / wall,
+         "copies_ms": copies, "kernels_ms": busy - copies, "idle_share": 1 - busy / wall,
+         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
          "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:15]],
          # the port's own kernels (csrc/*.cu, all in anonymous namespaces)
          "port_kernels": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows if k.startswith(
@@ -743,16 +790,20 @@ def train_kernel_phase(torch, dev):
     assign_err = 0.0  # assigned and max_overlaps must be exact; the targets' error
     for case, boxes in (("random", gt), ("ties", tied)):
         got = assign_cuda.rpn_assign_targets(anchors, boxes, gt_valid, prior_valid, *thr)
+        again = assign_cuda.rpn_assign_targets(anchors, boxes, gt_valid, prior_valid, *thr)
         ref = assign_cuda.rpn_assign_targets_plain(anchors, boxes, gt_valid, prior_valid, *thr)
         torch.cuda.synchronize()
         same_assigned = torch.equal(got[0], ref[0])
         same_iou = torch.equal(got[1], ref[1])
+        # atomicMax on bits: a max, whatever order the blocks fold in
+        rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+        check(f"assign {case}", rerun, "two calls of the kernel differ")
         tgt_err = (got[2] - ref[2]).abs().max().item()
         tgt_scale = max(1.0, ref[2].abs().max().item())
         assign_err = max(assign_err, tgt_err)
         log(dict(kernel="assign", case=case, positives=int((got[0] >= 0).sum()),
                  identical_assigned=same_assigned, bit_equal_max_overlaps=same_iou,
-                 tgt_max_abs_err=tgt_err))
+                 bit_identical_reruns=rerun, tgt_max_abs_err=tgt_err))
         check(f"assign {case}", same_assigned and same_iou,
               "assigned or max_overlaps differ from the plain version")
         # the targets: the same f32 operations; logf may round an ulp apart
@@ -767,6 +818,7 @@ def train_kernel_phase(torch, dev):
     results[("assign", "float32")] = dict(
         kernel="assign", dtype="float32", launches_per_step=1,
         kernel_ms=time_ms(torch, lambda: assign_cuda.rpn_assign_targets(*args), 20),
+        device_ms=device_ms(torch, lambda: assign_cuda.rpn_assign_targets(*args), 10),
         plain_ms=time_ms(torch, lambda: assign_cuda.rpn_assign_targets_plain(*args), 3),
         library_ms=None, max_abs_err=assign_err,
         tol="identical assigned, bit-equal max_overlaps, tgt within 1e-5 * max(1, max|plain|)",
@@ -1096,10 +1148,12 @@ def main() -> int:
             for k in ("by_size", "cases"):  # roi_align at train / batch-16 sizes; roi_align_bwd's sets
                 if k in r:
                     kernels[-1][k] = r[k]
-            if name == "nms":  # the train step's call: 16 images
-                r16 = results[("nms", "float32", TRAIN_BATCH)]
-                kernels[-1]["batch16"] = {k: r16[k] for k in ("bound_ms", "device_ms")} | {
-                    "ms": r16["kernel_ms"]}
+            if name == "nms":  # the train step's call and predict batch 16's multiclass call
+                for key, sub in ((TRAIN_BATCH, "batch16"), ("multiclass16", "multiclass_batch16")):
+                    r16 = results[("nms", "float32", key)]
+                    kernels[-1][sub] = {k: r16[k] for k in (
+                        "bound_ms", "device_ms", "nms_kernels_device_ms", "ious_evaluated")} | {
+                        "ms": r16["kernel_ms"]}
             if "library_device_ms" in r:  # the conv kernels, also at batch 16
                 kernels[-1]["library_device_ms"] = r["library_device_ms"]
                 r16 = results[(name, "bfloat16", TRAIN_BATCH)]  # 16 images (the train step's rpn_head)

@@ -47,7 +47,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "nsgp_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "nsgp_nms": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "nsgp_nms": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
     "nsgp_roi_align": [
         _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P,
     ],
@@ -55,7 +55,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P,
     ],
     "nsgp_roi_footprints": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
-    "nsgp_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    "nsgp_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
     "nsgp_gather": [_P, _P, _P, _L, _I, _I, _P],
 }
 

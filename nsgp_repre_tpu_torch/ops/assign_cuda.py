@@ -18,8 +18,7 @@ from ..models.assigners import max_iou_assign
 from ..structures.boxes import bbox2delta
 from . import _ext
 
-THREADS = 256  # anchors per block (csrc/assign.cu kThreads)
-MAX_G = 512  # gt slots the kernel keeps in shared memory (kMaxG)
+MAX_G = 512  # gt slots the kernel takes per image (csrc/assign.cu kMaxG)
 
 
 def rpn_assign_targets_plain(anchors, gt_boxes, gt_valid, prior_valid, pos_iou_thr: float,
@@ -75,16 +74,15 @@ def rpn_assign_targets(
     for t, name in ((anchors, "anchors"), (gt_boxes, "gt_boxes"), (gt_valid, "gt_valid"),
                     (prior_valid, "prior_valid")):
         _ext.require_cuda(t, name, (t.dtype,))
-    nblk = -(-N // THREADS)
-    partial = torch.empty((B, nblk, G), dtype=torch.float32, device=dev)
-    gmax = torch.empty((B, G), dtype=torch.float32, device=dev)
+    # compacted gt boxes (4 words each), gt maxima, compacted gt indices, valid counts
+    scratch = torch.empty((B * (6 * G + 1),), dtype=torch.int32, device=dev)
     assigned = torch.empty((B, N), dtype=torch.int32, device=dev)
     max_overlaps = torch.empty((B, N), dtype=torch.float32, device=dev)
     tgt = torch.empty((B, N, 4), dtype=torch.float32, device=dev)
     if B and N:
         rc = _ext.lib().nsgp_assign(
             anchors.data_ptr(), gt_boxes.data_ptr(), gt_valid.data_ptr(), prior_valid.data_ptr(),
-            partial.data_ptr(), gmax.data_ptr(), assigned.data_ptr(), max_overlaps.data_ptr(),
+            scratch.data_ptr(), assigned.data_ptr(), max_overlaps.data_ptr(),
             tgt.data_ptr(), B, N, G, float(pos_iou_thr), float(neg_iou_thr), float(min_pos_iou),
             _ext.stream_ptr(anchors),
         )

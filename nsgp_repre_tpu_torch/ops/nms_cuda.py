@@ -4,8 +4,9 @@ Counterpart of nsgp_repre_tpu/ops/nms_pallas.py (``batched_nms_pallas``).
 The wrapper applies the per-image group offset, ranks each image's
 masked scores with a stable descending sort (as the JAX wrapper ranks
 outside its kernel, nms_pallas.py:178-179), and hands the sorted boxes
-to the kernels: one builds the pairwise suppression bitmask, one sweeps
-it greedily. For CPU tensors it runs the plain version, ops/nms.py.
+to one kernel launch: a cluster of blocks per image walks them greedily,
+64 at a time, against the boxes kept so far, held in shared memory.
+For CPU tensors it runs the plain version, ops/nms.py.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ from . import _ext
 from .nms import NEG_INF, offset_boxes
 from .nms import nms as nms_plain
 
-BLOCK = 64  # boxes per bitmask word (csrc/nms.cu kBlock)
-MAX_WORDS = 6000  # the sweep keeps one "removed" word per 64 boxes, under 48 KB of shared memory
+MAX_KEEP = 8192  # max_out: the kept set one block can hold, 24 B a box (csrc/nms.cu kMaxKeep)
 
 
 def sort_candidates(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
@@ -36,33 +36,48 @@ def sort_candidates(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tens
     return sorted_boxes.contiguous(), order.to(torch.int32).contiguous(), n_valid.contiguous()
 
 
-def nms_kernel(boxes, scores, valid, iou_threshold: float, max_out: int):
-    """Greedy NMS of (B, N, 4) CUDA boxes; same contract as
-    ops/nms.py::nms (keep_idx (B, max_out) int32, keep_valid)."""
+def _walk(boxes, scores, valid, iou_threshold: float, max_out: int, ious=None):
+    """Sort, then one launch of csrc/nms.cu's walk; ``ious``, a one-element
+    CUDA int64 tensor or None, selects its counting instantiation."""
     B, N = scores.shape
     if tuple(boxes.shape) != (B, N, 4) or tuple(valid.shape) != (B, N):
         raise ValueError(f"boxes (B,N,4), scores and valid (B,N): got {tuple(boxes.shape)}, "
                          f"{tuple(scores.shape)}, {tuple(valid.shape)}")
+    if max_out > MAX_KEEP:
+        raise ValueError(f"nms kernel keeps {MAX_KEEP} boxes per image at most, got max_out {max_out}")
     dev = scores.device
     sorted_boxes, order, n_valid = sort_candidates(boxes, scores, valid)
     for t, name in ((sorted_boxes, "boxes"), (order, "order"), (n_valid, "n_valid")):
         _ext.require_cuda(t, name, (t.dtype,))
-    nblk = (N + BLOCK - 1) // BLOCK
-    if nblk > MAX_WORDS:
-        raise ValueError(f"nms kernel keeps {MAX_WORDS * BLOCK} candidates at most, got {N}")
-    mask = torch.empty((B, N, max(nblk, 1)), dtype=torch.int64, device=dev)
-    keep_idx = torch.zeros((B, max_out), dtype=torch.int32, device=dev)
-    count = torch.zeros((B,), dtype=torch.int32, device=dev)
-    if B and N and max_out:
+    launch = bool(B and N and max_out)
+    alloc = torch.empty if launch else torch.zeros  # the kernel writes every slot
+    keep_idx = alloc((B, max_out), dtype=torch.int32, device=dev)
+    count = alloc((B,), dtype=torch.int32, device=dev)
+    if launch:
         rc = _ext.lib().nsgp_nms(
-            sorted_boxes.data_ptr(), order.data_ptr(), n_valid.data_ptr(), mask.data_ptr(),
-            keep_idx.data_ptr(), count.data_ptr(), B, N, float(iou_threshold), max_out,
-            _ext.stream_ptr(scores),
+            sorted_boxes.data_ptr(), order.data_ptr(), n_valid.data_ptr(), keep_idx.data_ptr(),
+            count.data_ptr(), B, N, float(iou_threshold), max_out,
+            None if ious is None else ious.data_ptr(), _ext.stream_ptr(scores),
         )
         _ext.check(rc, "nms")
         _ext.LAUNCHES["nms"] += 1
     keep_valid = torch.arange(max_out, device=dev)[None, :] < count[:, None]
     return keep_idx, keep_valid
+
+
+def nms_kernel(boxes, scores, valid, iou_threshold: float, max_out: int):
+    """Greedy NMS of (B, N, 4) CUDA boxes; same contract as
+    ops/nms.py::nms (keep_idx (B, max_out) int32, keep_valid)."""
+    return _walk(boxes, scores, valid, iou_threshold, max_out)
+
+
+def count_ious(boxes, scores, valid, iou_threshold: float, max_out: int):
+    """nms_kernel through the walk's counting instantiation: its keep list
+    and the number of IoUs the walk evaluated, summed over the cluster's
+    blocks and the batch (a measurement; the main path does not count)."""
+    ious = torch.zeros(1, dtype=torch.int64, device=scores.device)
+    keep_idx, keep_valid = _walk(boxes, scores, valid, iou_threshold, max_out, ious)
+    return keep_idx, keep_valid, int(ious.item())
 
 
 def batched_nms(boxes, scores, idxs, valid, iou_threshold: float, max_out: int):

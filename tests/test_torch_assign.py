@@ -139,3 +139,106 @@ def test_plain_on_detector_anchors_matches_pallas_interpret():
     got = rpn_assign_targets(_t(anchors), _t(gt), _t(gt_valid), _t(prior_valid), *THR)
     _check(got, ref, tgt_atol=1e-5)
     assert int((got[0] >= 0).sum()) > 0
+
+
+F = np.float32
+
+
+def _iou_skip(g, a):
+    """csrc/assign.cu::iou in numpy f32, (V, 1, 4) gts against (N, 4)
+    anchors: bbox_overlaps' order, the division skipped where inter == 0."""
+    area_g = (g[..., 2] - g[..., 0]) * (g[..., 3] - g[..., 1])
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    iw = np.maximum(np.minimum(g[..., 2], a[..., 2]) - np.maximum(g[..., 0], a[..., 0]), F(0))
+    ih = np.maximum(np.minimum(g[..., 3], a[..., 3]) - np.maximum(g[..., 1], a[..., 1]), F(0))
+    inter = iw * ih
+    uni = np.maximum(area_g + area_a - inter, F(1e-6))
+    return np.where(inter == 0, inter, inter / uni)
+
+
+def _assign_emulated(anchors, gt, gt_valid, prior_valid, span, seed):
+    """numpy emulation of csrc/assign.cu. Phase 1: the valid gts compacted
+    in index order; each block of ``span`` anchors takes its per-gt maxima
+    (anchors past N count -1 and are never folded) and folds them, blocks
+    in a shuffled order, into a zeroed uint32 buffer by an unsigned max
+    on the bits. Phase 2: the rules against the compacted gts and the
+    buffer read back as floats."""
+    pos_thr, neg_thr, min_pos = THR
+    rng = np.random.RandomState(seed)
+    B, G = gt_valid.shape
+    N = len(anchors)
+    nblk = -(-N // span)
+    assigned = np.full((B, N), -2, np.int32)
+    maxov = np.full((B, N), -1, F)
+    for b in range(B):
+        idx = np.flatnonzero(gt_valid[b])
+        iou = _iou_skip(gt[b][idx][:, None], anchors)  # (V, N)
+        padded = np.concatenate([iou, np.full((len(idx), nblk * span - N), -1, F)], 1)
+        gmax = np.zeros(len(idx), np.uint32)
+        for blk in rng.permutation(nblk):
+            m = padded[:, blk * span:(blk + 1) * span].max(1, initial=F(-1))
+            fold = m >= 0  # the -1 of a missing anchor is never folded
+            bits = (m + F(0)).view(np.uint32)  # -0 -> +0
+            gmax = np.where(fold, np.maximum(gmax, bits), gmax)
+        gm = gmax.view(F)
+        if len(idx):
+            maxov[b] = iou.max(0)
+            amax = idx[iou.argmax(0)]  # the first gt among ties
+            claim = (iou == gm[:, None]) & (gm[:, None] >= F(min_pos))
+            last = len(idx) - 1 - claim[::-1].argmax(0)  # the last claiming gt
+            claimed = np.where(claim.any(0), idx[last], -1)
+        else:
+            amax, claimed = np.zeros(N, np.int64), np.full(N, -1)
+        r = np.full(N, -2)
+        r[(maxov[b] >= 0) & (maxov[b] < F(neg_thr))] = -1
+        r = np.where(maxov[b] >= F(pos_thr), amax, r)
+        r = np.where(claimed >= 0, claimed, r)
+        assigned[b] = np.where(prior_valid[b], r, -2)
+    return assigned, maxov
+
+
+def test_float_bits_order_needs_the_sign_guard():
+    """Non-negative floats order as their unsigned bits do, so an unsigned
+    atomicMax folds IoUs exactly; the -1 sentinel's bits are larger than
+    any IoU's, which is why the kernel never folds it."""
+    x = np.sort(np.concatenate([np.random.RandomState(0).rand(5000).astype(F),
+                                F([0, 1, 2 ** -149, 0.5, np.nextafter(F(0.5), F(1))])]))
+    bits = x.view(np.uint32)
+    assert (np.diff(bits.astype(np.int64)) >= 0).all()
+    assert F(-1).view(np.uint32) > F(1).view(np.uint32)
+    assert (F(-0.0) + F(0)).view(np.uint32) == 0
+
+
+@pytest.mark.parametrize("case", ["fixture", "detector"])
+@pytest.mark.parametrize("span", [1024, 64])
+def test_atomic_max_schedule_matches_plain(case, span):
+    """The emulated two-phase schedule against max_iou_assign (the plain
+    version) and JAX's assigner: tied gts (first in the argmax, last in
+    the claims), padded gts (IoU -1 in the plain version), an image with
+    no valid gt, a gt equal to an anchor (IoU exactly 1), N not a
+    multiple of the block."""
+    if case == "fixture":
+        anchors, gt, gt_valid, prior_valid = _fixture(5, B=3, G=7, N=2500)
+    else:
+        gen = JaxAnchorGenerator(strides=(4, 8, 16, 32, 64), ratios=(0.5, 1.0, 2.0), scales=(8,))
+        sizes = [(-(-96 // s), -(-160 // s)) for s in (4, 8, 16, 32, 64)]
+        anchors = np.concatenate(gen.grid_anchors(sizes), 0).astype(F)
+        rng = np.random.RandomState(8)
+        B, G = 3, 9
+        xy = rng.uniform(0, 90, (B, G, 2)).astype(F)
+        gt = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 70, (B, G, 2)), [160, 96])],
+                            -1).astype(F)
+        gt[:, 1] = gt[:, 0]
+        gt[:, 2] = anchors[100]
+        gt_valid = np.arange(G)[None] < np.array([[4], [9], [0]])
+        prior_valid = rng.rand(B, len(anchors)) > 0.05
+    assert len(anchors) % span
+    ref_a, ref_m = max_iou_assign(_t(anchors), _t(gt), _t(gt_valid), *THR, match_low_quality=True,
+                                  prior_valid=_t(prior_valid))
+    got_a, got_m = _assign_emulated(anchors, gt, gt_valid, prior_valid, span, seed=span)
+    np.testing.assert_array_equal(got_a, ref_a.numpy())
+    np.testing.assert_array_equal(got_m.view(np.uint32), ref_m.numpy().view(np.uint32))
+    jax_a, jax_m, _ = _jax_reference(anchors, gt, gt_valid, prior_valid)
+    np.testing.assert_array_equal(got_a, np.asarray(jax_a))
+    np.testing.assert_array_equal(got_m, np.asarray(jax_m))
+    assert (got_a >= 0).any() and (got_m == -1).any()

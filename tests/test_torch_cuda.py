@@ -20,6 +20,8 @@ from nsgp_repre_tpu_torch.ops import (_ext, assign_cuda, gather_cuda, nms, nms_c
                                       roi_align_cuda)
 from nsgp_repre_tpu_torch.ops import rpn_head_cuda as rh
 
+from nms_edge_pairs import edge_pairs
+
 pytestmark = pytest.mark.cuda
 
 
@@ -119,14 +121,83 @@ def _nms_inputs(seed, B, N, ties):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("B,N,max_out", [(1, 8304, 1000), (3, 700, 50), (2, 65, 200)])
+@pytest.mark.parametrize("B,N,max_out", [(1, 8304, 1000), (3, 700, 50), (2, 65, 200),
+                                         (2, 20_000, 100)])
 def test_nms_kernel(dev, ties, B, N, max_out):
+    """N not a multiple of the 64-box row block, max_out above the valid
+    count (N = 65), an image without candidates, two calls bit for bit."""
     boxes, scores, valid, idxs = (t.to(dev) for t in _nms_inputs(B + N, B, N, ties))
     valid[-1] = False  # an image without candidates
     ki, kv = nms_cuda.batched_nms(boxes, scores, idxs, valid, 0.6, max_out)
+    again = nms_cuda.batched_nms(boxes, scores, idxs, valid, 0.6, max_out)
     pi, pv = nms.batched_nms(boxes, scores, idxs, valid, 0.6, max_out)
     assert torch.equal(kv, pv)
     assert torch.equal(ki, pi)  # valid slots and the zeros of unused ones
+    assert torch.equal(again[0], ki) and torch.equal(again[1], kv)
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+def test_nms_kernel_threshold_edges(dev, thr):
+    """Pairs at the IoU threshold and one ulp either side of it (the
+    kernel's division-skip band), the later boxes meeting the earlier ones
+    in the row block's triangle and through the kept set."""
+    firsts, seconds, kinds = [], [], []
+    for i, kind in enumerate(("at", "above", "below")):
+        for j in range(12):
+            slot = 12 * i + j
+            a, b = edge_pairs(thr, 1, seed=slot, x0=150.0 * slot)[kind]
+            firsts.append(torch.from_numpy(a[0]))
+            seconds.append(torch.from_numpy(b[0]))
+            kinds.append(kind)
+    P = len(firsts)
+    g = torch.Generator().manual_seed(5)
+    boxes = torch.stack(firsts + seconds)[None].to(dev)
+    scores = torch.cat([torch.rand(P, generator=g) * 0.1 + 0.9,
+                        torch.rand(P, generator=g) * 0.4 + 0.1])[None].to(dev)
+    valid = torch.ones(1, 2 * P, dtype=torch.bool, device=dev)
+    ki, kv = nms_cuda.nms_kernel(boxes, scores, valid, thr, 2 * P)
+    pi, pv = nms.nms(boxes, scores, valid, thr, 2 * P)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    kept = set(ki[0][kv[0]].tolist())
+    assert [P + p in kept for p in range(P)] == [k != "above" for k in kinds]
+
+
+def test_nms_kernel_keep_limit(dev):
+    """max_out at the kept set's limit (every box kept: a grid of disjoint
+    boxes), and one over it, which the wrapper refuses."""
+    n = nms_cuda.MAX_KEEP + 100
+    k = torch.arange(n, dtype=torch.float32)
+    x, y = (k % 128) * 20, (k // 128) * 20
+    boxes = torch.stack([x, y, x + 10, y + 10], -1)[None].to(dev)
+    scores = torch.rand(1, n, generator=torch.Generator().manual_seed(6)).to(dev)
+    valid = torch.ones(1, n, dtype=torch.bool, device=dev)
+    ki, kv = nms_cuda.nms_kernel(boxes, scores, valid, 0.5, nms_cuda.MAX_KEEP)
+    pi, pv = nms.nms(boxes, scores, valid, 0.5, nms_cuda.MAX_KEEP)
+    assert int(kv.sum()) == nms_cuda.MAX_KEEP
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    with pytest.raises(ValueError, match="at most"):
+        nms_cuda.nms_kernel(boxes, scores, valid, 0.5, nms_cuda.MAX_KEEP + 1)
+
+
+def test_nms_kernel_iou_count(dev):
+    """The walk's counting instantiation on disjoint boxes, all kept: each
+    candidate meets every earlier keep once (the kept set is dealt over
+    the cluster), and each of the cluster's blocks tests the row block's
+    own pairs both ways; same keep list as the uncounted launch."""
+    n = 1000
+    k = torch.arange(n, dtype=torch.float32)
+    boxes = torch.stack([(k % 40) * 20, (k // 40) * 20, (k % 40) * 20 + 10, (k // 40) * 20 + 10],
+                        -1)[None].to(dev)
+    scores = torch.rand(1, n, generator=torch.Generator().manual_seed(7)).to(dev)
+    valid = torch.ones(1, n, dtype=torch.bool, device=dev)
+    ki, kv, ious = nms_cuda.count_ious(boxes, scores, valid, 0.5, n)
+    ref = nms_cuda.nms_kernel(boxes, scores, valid, 0.5, n)
+    assert torch.equal(ki, ref[0]) and torch.equal(kv, ref[1]) and int(kv.sum()) == n
+    rows = [min(64, n - s) for s in range(0, n, 64)]
+    against_kept = sum(r * s for r, s in zip(rows, range(0, n, 64)))
+    in_block = sum(r * (r - 1) for r in rows)
+    cs, rest = divmod(ious - against_kept, in_block)
+    assert rest == 0 and cs in (1, 2, 4, 8), (ious, against_kept, in_block)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
@@ -193,27 +264,43 @@ def _assign_inputs(seed, B, N, G, ties):
     anchors = torch.cat([xy, xy + torch.rand(N, 2, generator=g) * 200 + 8], -1)
     gxy = torch.rand(B, G, 2, generator=g) * 800
     gt = torch.cat([gxy, gxy + torch.rand(B, G, 2, generator=g) * 300 + 16], -1)
-    if ties:
+    if ties and G == 1:
+        gt[:, 0] = anchors[:B]  # a gt equal to an anchor (IoU 1)
+    elif ties:
         gt[:, 1] = gt[:, 0]  # duplicated gt: argmax ties and claim ties
         gt[:, 2] = anchors[:B]  # a gt equal to an anchor (IoU 1)
-    n_valid = torch.randint(1, 9, (B, 1), generator=g)
-    gt_valid = torch.arange(G)[None] < n_valid
+    if G > 64:  # every slot a gt, but for one image with none
+        gt_valid = torch.ones(B, G, dtype=torch.bool)
+        gt_valid[-1] = False
+    else:
+        n_valid = torch.randint(1, 9, (B, 1), generator=g)
+        gt_valid = torch.arange(G)[None] < n_valid
     prior_valid = torch.rand(B, N, generator=g) > 0.05
     return anchors, gt, gt_valid, prior_valid
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("B,N,G", [(4, 20_000, 64), (2, 777, 3)])
+@pytest.mark.parametrize("B,N,G", [(4, 20_000, 64), (2, 777, 3), (3, 5001, 1), (3, 4096, 512)])
 def test_assign_kernel(dev, ties, B, N, G):
+    """G = 1 and G = 512 (the kernel's limit), N not a multiple of the
+    1,024-anchor block (777, 5001), two calls bit for bit."""
     args = [t.to(dev) for t in _assign_inputs(B + N, B, N, G, ties)]
     before = _ext.LAUNCHES["assign"]
     got = assign_cuda.rpn_assign_targets(*args, 0.7, 0.3, 0.3)
     assert _ext.LAUNCHES["assign"] == before + 1
+    again = assign_cuda.rpn_assign_targets(*args, 0.7, 0.3, 0.3)
     ref = assign_cuda.rpn_assign_targets_plain(*args, 0.7, 0.3, 0.3)
     assert torch.equal(got[0], ref[0])
     assert torch.equal(got[1], ref[1])  # bit-equal IoUs
     assert (got[0] >= 0).any()
     torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_assign_wrapper_rejects_gt_slots_over_limit(dev):
+    args = [t.to(dev) for t in _assign_inputs(3, 1, 100, assign_cuda.MAX_G + 1, False)]
+    with pytest.raises(ValueError, match="gt slots"):
+        assign_cuda.rpn_assign_targets(*args, 0.7, 0.3, 0.3)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
