@@ -38,7 +38,18 @@ Phases, each of which raises on a failed check (exit code 1):
    once per step, losses stay finite, frozen parameters stay bit-equal
    and trainable ones move; the f32 batch-1 loss terms and gradients on
    the card against the CPU; step time, img/s, peak memory, one profiled
-   step.
+   step;
+7. task chain, from the slice phase's task-1 weights: the covariance pass over
+   2 batches, the NSGP projections on the host (timed), the RoI store
+   over 13 batches, the prototypes, the EWC importance over 2 batches;
+   then task 2 (15+5 task-2 config: teacher in the step, projections,
+   prototypes, EWC): the assign kernel at the merged 164 gt slots against
+   its plain version, 2 + 10 steps (launches per step, finite terms, EWC
+   nonzero once the weights move), the teacher's detections fed in (the
+   same terms bit for bit), frozen parameters and the teacher bit-equal,
+   2 raw-replay steps, and the f32 batch-1 task-2 loss and gradients on
+   the card against the CPU; each path's launches, step time, peak
+   memory, profiles of each pass.
 
 The last lines are the card line, one JSON object listing the kernels,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -55,6 +66,8 @@ import time
 import traceback
 
 CONFIG = "cl_faster_rcnn_cfgs/incremental_task/cl_faster_rcnn_nsgp_repre_15_5_1.py"
+CONFIG2 = "cl_faster_rcnn_cfgs/incremental_task/cl_faster_rcnn_nsgp_repre_15_5_2.py"
+CONFIG2_RAW = "cl_faster_rcnn_cfgs/incremental_task/cl_faster_rcnn_nsgp_repre_15_5_2_rawreplay.py"
 IMAGE_HW = (600, 1000)  # keep-ratio resize to (1000, 600) is the identity → 608x1024 canvas
 CANVAS = (608, 1024)
 STRIDES = (4, 8, 16, 32, 64)
@@ -99,6 +112,20 @@ EXPECTED_B16 = {"conv3x3": 0, "rpn_head": 0, "nms": 2, "roi_align": 1, "roi_alig
 # forward and backward once each
 EXPECTED_TRAIN = {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 1, "roi_align_bwd": 1,
                   "assign": 1, "gather": 0}
+# the task chain's paths, as the JAX code implies them: a task-2 step runs
+# the teacher's predict at batch 16 (library convs under
+# infer_fused_max_batch=1; proposal and multiclass NMS, one RoIAlign) and
+# then the student's step; fed teacher_dets, the student's step alone; the
+# covariance pass is the loss forward with the taps on (the RPN head
+# unfused, no backward); the RoI store is a predict-style RPN and one
+# RoIAlign; the importance step is the task-1 loss and its backward
+EXPECTED_TEACHER = {"conv3x3": 0, "rpn_head": 0, "nms": 2, "roi_align": 1, "roi_align_bwd": 0,
+                    "assign": 0, "gather": 0}
+EXPECTED_TASK2 = {k: EXPECTED_TRAIN[k] + EXPECTED_TEACHER[k] for k in EXPECTED_TRAIN}
+EXPECTED_COV = {"conv3x3": 0, "rpn_head": 0, "nms": 1, "roi_align": 1, "roi_align_bwd": 0,
+                "assign": 1, "gather": 0}
+EXPECTED_EXTRACT = {"conv3x3": 0, "rpn_head": 0, "nms": 1, "roi_align": 1, "roi_align_bwd": 0,
+                    "assign": 0, "gather": 0}
 TRAIN_BATCH = 16  # _base_/datasets/voc_task_base.py:11
 GT_CAPACITY = 64  # nsgp_repre_tpu/engine/runner.py:252
 STEPS_PER_EPOCH = 1000  # read only by the MultiStepLR milestones (epochs 8, 11)
@@ -915,21 +942,66 @@ def train_kernel_phase(torch, dev):
 # train phase
 # ---------------------------------------------------------------------------
 
-def capture_hidden(torch, model):
+def capture_hidden(torch, model, follow=None):
     """Record, on the host, the sparse RPN head's pre-ReLU hidden values
     (M, F) at the sampled positions as ``at_positions`` computes them; the
-    method is wrapped on this instance until its attribute is deleted."""
+    method is wrapped on this instance until its attribute is deleted.
+    With ``follow`` (the card's record of the same calls), the hidden ReLU
+    decides as it did there: where the two put a value on opposite sides
+    of zero, it takes the card's value, h + (h_card - h).detach(), so its
+    gradient stays this model's (as follow_relus does for the bbox head)."""
     head, store = model.rpn_head, []
 
     def at_positions(patches, _orig=head.at_positions):
-        with torch.no_grad():
-            k = head.rpn_conv.weight.to(patches.dtype).permute(2, 3, 1, 0)
-            h = patches.reshape(patches.shape[0], -1) @ k.reshape(-1, k.shape[-1])
-            store.append((h + head.rpn_conv.bias.to(patches.dtype)).float().cpu())
-        return _orig(patches)
+        dt = patches.dtype
+        k = head.rpn_conv.weight.to(dt).permute(2, 3, 1, 0)
+        h = patches.reshape(patches.shape[0], -1) @ k.reshape(-1, k.shape[-1])
+        h = h + head.rpn_conv.bias.to(dt)
+        store.append(h.detach().float().cpu())
+        if follow is None:
+            return _orig(patches)
+        hc = follow[(len(store) - 1) % len(follow)].to(h.device, dt)
+        h = torch.relu(h + torch.where((hc > 0) != (h > 0), (hc - h).detach(), torch.zeros_like(h)))
+        Fc = h.shape[-1]
+        cls = h @ head.rpn_cls.weight.reshape(-1, Fc).t().to(dt) + head.rpn_cls.bias.to(dt)
+        reg = h @ head.rpn_reg.weight.reshape(-1, Fc).t().to(dt) + head.rpn_reg.bias.to(dt)
+        return cls, reg
 
     head.at_positions = at_positions
     return store
+
+
+def capture_fc(torch, model):
+    """Record, on the host, the bbox head's shared-FC outputs (the inputs of
+    its two ReLUs), call by call, until the returned hooks are removed."""
+    store = []
+    hooks = [fc.register_forward_hook(
+        lambda m, a, y, k=k: store.append((k, y.detach().float().cpu())))
+        for k, fc in enumerate(model.bbox_head.shared_fcs)]
+    return store, hooks
+
+
+def follow_relus(torch, model, calls):
+    """Make ``model``'s bbox-head ReLUs decide as they did in ``calls``
+    (capture_fc's record of the same calls on the card): where the two
+    put a shared-FC output on opposite sides of zero, the output takes the
+    card's value, y + (y_card - y).detach(), so its gradient stays this
+    model's. The flips, which the returned list counts call by call over
+    all runs, are thereby taken out of the comparison exactly. Returns
+    (counts, hooks)."""
+    by_fc = {k: [y for kk, y in calls if kk == k] for k in (0, 1)}
+    seen, counts = {0: 0, 1: 0}, []
+
+    def hook(m, args, y, k):
+        yc = by_fc[k][seen[k] % len(by_fc[k])].to(y.device)
+        seen[k] += 1
+        mask = (yc > 0) != (y > 0)
+        counts.append(int(mask.sum()))
+        return y + torch.where(mask, (yc - y).detach(), torch.zeros_like(y))
+
+    hooks = [fc.register_forward_hook(lambda m, a, y, k=k: hook(m, a, y, k))
+             for k, fc in enumerate(model.bbox_head.shared_fcs)]
+    return counts, hooks
 
 
 def train_phase(torch, card: str, state):
@@ -939,7 +1011,7 @@ def train_phase(torch, card: str, state):
     from nsgp_repre_tpu_torch.engine.runner import build_train_optimizer
     from nsgp_repre_tpu_torch.engine.train import TrainState, make_train_step
     from nsgp_repre_tpu_torch.ops import _ext
-    from nsgp_repre_tpu_torch.testing import demo_det_batch, split_loss_and_grads
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
     from nsgp_repre_tpu_torch.utils.config import load_config
 
     cfg16 = load_config(CONFIG)
@@ -1003,20 +1075,46 @@ def train_phase(torch, card: str, state):
     on_cpu.load_state_dict(state)
     b1 = demo_det_batch(1, *CANVAS, num_instances=(6,), num_classes=15, gt_capacity=GT_CAPACITY,
                         seed=SEED + 3)
+    card_vs_cpu(torch, "train", on_card, on_cpu, b1, GT_CAPACITY, {}, {})
+    return launches
+
+
+def card_vs_cpu(torch, label, on_card, on_cpu, b1, gt_slots, card_kw, cpu_kw):
+    """The f32 batch-1 loss terms and gradients of ``on_card`` (kernels)
+    against ``on_cpu`` (plain versions), the same weights and priorities:
+    testing.split_loss_and_grads with ``card_kw`` / ``cpu_kw`` (a task-2
+    loss's merged gt sets, prototypes and EWC terms, on each device), the
+    card's proposals fed to the CPU. The loss terms within 1e-3, every
+    gradient within 4x its module group's f32 noise floor. The ReLUs of
+    the sparse RPN head and of the bbox head on the CPU follow the card's
+    decisions where the two differ (capture_hidden, follow_relus; the
+    flips are counted and printed), so a near-tie that the devices round
+    to opposite sides moves no gradient. Returns the card's launches."""
+    from nsgp_repre_tpu_torch.ops import _ext
+    from nsgp_repre_tpu_torch.testing import split_loss_and_grads
+
     n_anchors = sum(h * w * A for h, w in level_shapes())
     pg = torch.Generator().manual_seed(SEED + 4)
-    n_cand = GT_CAPACITY + on_card.config.rpn_max_per_img
+    n_cand = gt_slots + on_card.config.rpn_max_per_img
     pri = {"rpn": torch.rand(1, n_anchors, generator=pg), "roi": torch.rand(1, n_cand, generator=pg),
            "roi2": torch.rand(1, n_cand, generator=pg)}
-    hidden_card, hidden_cpu = capture_hidden(torch, on_card), capture_hidden(torch, on_cpu)
+    hidden_card = capture_hidden(torch, on_card)
+    hidden_cpu = capture_hidden(torch, on_cpu, follow=hidden_card)
+    fc_card, hooks = capture_fc(torch, on_card)
     _ext.reset_launches()
-    got_l, got_g, props = split_loss_and_grads(on_card, b1, pri)
+    got_l, got_g, props = split_loss_and_grads(on_card, b1, pri, **card_kw)
     torch.cuda.synchronize()
     f32_launches = dict(_ext.LAUNCHES)
+    for h in hooks:
+        h.remove()
+    # the CPU follows the card's bbox-head ReLU decisions (the same RoIs on
+    # both: the card's proposals, the same draws), in this run and in the
+    # noise-floor run below
+    fc_flips, hooks = follow_relus(torch, on_cpu, fc_card)
     t0 = time.perf_counter()
-    ref_l, ref_g, _ = split_loss_and_grads(on_cpu, b1, pri, proposals=props)
+    ref_l, ref_g, _ = split_loss_and_grads(on_cpu, b1, pri, proposals=props, **cpu_kw)
     cpu_s = time.perf_counter() - t0
-    del on_card.rpn_head.at_positions, on_cpu.rpn_head.at_positions
+    bbox_flips = sum(fc_flips)
     # the sparse RPN head's ReLUs that the two devices decide differently:
     # the same sampled positions on both sides (same priorities, assign
     # identical), so the pre-ReLU values compare element by element
@@ -1028,8 +1126,9 @@ def train_phase(torch, card: str, state):
                     "min_abs_hidden_cpu": hp.abs().min().item(),
                     "max_abs_hidden_cpu": hp.abs().max().item(),
                     "flipped_card": hc[flipped][:8].tolist(), "flipped_cpu": hp[flipped][:8].tolist()}
-    check("f32 launches", all(f32_launches[k] == EXPECTED_TRAIN[k]
-                              for k in ("assign", "roi_align", "roi_align_bwd")), f32_launches)
+    check(f"{label} f32 launches", all(f32_launches[k] == EXPECTED_TRAIN[k]
+                                       for k in ("assign", "roi_align", "roi_align_bwd")),
+          f32_launches)
 
     def grad_rel(a, b):
         return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-12)
@@ -1042,7 +1141,10 @@ def train_phase(torch, card: str, state):
     with torch.no_grad():
         for p in on_cpu.parameters():
             p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
-    _, noisy_g, _ = split_loss_and_grads(on_cpu, b1, pri, proposals=props)
+    _, noisy_g, _ = split_loss_and_grads(on_cpu, b1, pri, proposals=props, **cpu_kw)
+    for h in hooks:
+        h.remove()
+    del on_card.rpn_head.at_positions, on_cpu.rpn_head.at_positions
     group = lambda k: ".".join(k.split(".")[:2])
     floor = {}
     for k, v in grad_rel(noisy_g, ref_g).items():
@@ -1051,37 +1153,355 @@ def train_phase(torch, card: str, state):
     # 1/512), the losses relative to their size
     loss_rel = {k: abs(got_l[k] - ref_l[k]) / (1.0 if k == "acc" else max(abs(ref_l[k]), 1e-3))
                 for k in ref_l}
-    check("f32 gradients", got_g.keys() == ref_g.keys(), "different parameters got gradients")
+    check(f"{label} f32 gradients", got_g.keys() == ref_g.keys(),
+          "different parameters got gradients")
     card_rel = grad_rel(got_g, ref_g)
     # each gradient within 4x its module group's noise floor: cuDNN and the
     # CPU sum the f32 convs in other orders, forward and backward, and the
     # RoIAlign backward sums its taps in another order than index_add_,
-    # each an ulp-sized perturbation. The sampled anchors and RoIs are the same (same
-    # priorities, the card's proposals on both sides). rpn_conv alone may
-    # also take 5e-3 of its largest magnitude for each ReLU of the sparse
-    # head that the two devices decided differently (counted above): a
-    # flip adds or drops one sampled position's share (~1/256) of its
-    # gradient; with no flip it gets no slack.
+    # each an ulp-sized perturbation. The sampled anchors and RoIs are the
+    # same (same priorities, the card's proposals on both sides), and the
+    # heads' ReLUs decide alike (followed above, in the noise run too).
     def tol(k):
-        slack = 5e-3 * flips if k.startswith("rpn_head.rpn_conv.") else 0.0
-        return 4 * floor[group(k)] + slack
+        return 4 * floor[group(k)]
 
-    ratio = {k: v / tol(k) for k, v in card_rel.items()}
+    # a group whose gradients the jitter left unchanged has a zero floor:
+    # it must then match exactly
+    ratio = {k: v / tol(k) if tol(k) > 0 else (0.0 if v == 0 else float("inf"))
+             for k, v in card_rel.items()}
     worst = sorted(ratio.items(), key=lambda kv: -kv[1])[:5]
     by_group = {}
     for k, v in card_rel.items():
         by_group[group(k)] = max(by_group.get(group(k), 0.0), v)
-    log({"phase": "train f32 batch 1, card vs cpu", "losses_card": got_l, "losses_cpu": ref_l,
+    log({"phase": f"{label} f32 batch 1, card vs cpu", "losses_card": got_l, "losses_cpu": ref_l,
          "loss_rel_err": loss_rel, "grad_rel_err_by_group": by_group, "noise_floor_by_group": floor,
-         "sparse_head_relu": relu_witness,
+         "sparse_head_relu": relu_witness, "bbox_head_relu_flips_followed": bbox_flips,
          "worst_err_over_tolerance": [(k, r, card_rel[k]) for k, r in worst],
          "params_with_grad": len(ref_g), "cpu_seconds": cpu_s})
     # loss terms within 1e-3 relative (the same sums, reordered)
     for k, v in loss_rel.items():
         lim = 2.0 / on_card.config.rcnn_num if k == "acc" else 1e-3
-        check(f"f32 {k}", v <= lim, f"card {got_l[k]} cpu {ref_l[k]}")
-    check("f32 gradients", worst[0][1] <= 1.0, f"worst (name, err/tol, err) {worst}")
-    return launches
+        check(f"{label} f32 {k}", v <= lim, f"card {got_l[k]} cpu {ref_l[k]}")
+    check(f"{label} f32 gradients", worst[0][1] <= 1.0, f"worst (name, err/tol, err) {worst}")
+    return f32_launches
+
+
+# ---------------------------------------------------------------------------
+# task chain: the task-end passes of task 1, then task-2 steps
+# ---------------------------------------------------------------------------
+
+def run_path(torch, label, expected, fn):
+    """One call of ``fn`` counted from zero: its kernel launches must be
+    ``expected``. Returns (result, launches)."""
+    from nsgp_repre_tpu_torch.ops import _ext
+
+    _ext.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    check(f"{label} launches", launches == expected, f"{launches} != {expected}")
+    return out, launches
+
+
+def assign_at_merged_g(torch, model, gts, img_shape):
+    """The assign kernel at the task-2 step's merged gt capacity (64 gt
+    slots + 100 teacher detections) against its plain version on the same
+    card tensors: assigned and max_overlaps bit-equal, targets within 1e-5."""
+    from nsgp_repre_tpu_torch.ops import assign_cuda
+
+    feats = [torch.empty(1, h, w, 1, device="cuda") for h, w in level_shapes()]
+    anchors, sizes = model._anchors(feats)
+    valid = model._anchor_valid(sizes, img_shape.cuda())
+    cfg = model.config
+    args = (anchors, gts.boxes, gts.valid, valid, cfg.rpn_pos_iou_thr, cfg.rpn_neg_iou_thr,
+            cfg.rpn_min_pos_iou)
+    got = assign_cuda.rpn_assign_targets(*args)
+    ref = assign_cuda.rpn_assign_targets_plain(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    tgt_err = (got[2] - ref[2]).abs().max().item()
+    entry = {"phase": "assign at the merged gt capacity", "gt_slots": int(gts.boxes.shape[1]),
+             "valid_gts": gts.valid.sum(1).tolist(), "positives": int((got[0] >= 0).sum()),
+             "identical_assigned_and_max_overlaps": same, "tgt_max_abs_err": tgt_err,
+             "device_ms": device_ms(torch, lambda: assign_cuda.rpn_assign_targets(*args), 5)}
+    log(entry)
+    check("assign G=164", same and gts.boxes.shape[1] == GT_CAPACITY + cfg.max_per_img,
+          "assigned or max_overlaps differ from the plain version")
+    check("assign G=164 targets", tgt_err <= 1e-5 * max(1.0, ref[2].abs().max().item()),
+          f"tgt max_abs_err {tgt_err}")
+
+
+def task_chain_phase(torch, card: str, task1):
+    """Task 1's end passes on the task-1 weights ``task1`` (covariances
+    over 2 batches, the NSGP projections on the host, the RoI store,
+    prototypes, EWC importance over 2 batches), then task 2 (teacher in
+    the step, projections, prototypes, EWC): 2 + 10 steps, one step fed
+    the teacher's detections, 2 raw-replay steps, and the f32 batch-1
+    task-2 loss and gradients card against CPU. Returns the launches per
+    path.
+
+    ``task1`` is the slice phase's task-1 model (seeded, its BNs
+    calibrated and its classifier scaled), on which predict finds 100
+    detections per image. The train phase's 12 steps on noise images
+    leave a saturated classifier whose detections on these images
+    flipped between ~1,000 and none from one run to the next (that phase
+    is not bit-reproducible on the card), which would leave the teacher's
+    pseudo-labels empty in some runs."""
+    import copy
+
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.apis.inference import Detector, _pack_images, init_detector
+    from nsgp_repre_tpu_torch.engine import ewc, nsgp, optim, replay
+    from nsgp_repre_tpu_torch.engine.pseudo import merge_pseudo_labels
+    from nsgp_repre_tpu_torch.engine.runner import (build_teacher, build_train_optimizer,
+                                                    translate_ignore_keys)
+    from nsgp_repre_tpu_torch.engine.train import (TrainState, make_cov_step, make_importance_step,
+                                                   make_roi_extract_step, make_teacher_step,
+                                                   make_train_step, normalize_images, task_losses)
+    from nsgp_repre_tpu_torch.models.layers import CovConv, CovDense
+    from nsgp_repre_tpu_torch.ops import _ext
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    paths = {}
+
+    def batch_of(seed, n=TRAIN_BATCH):
+        """The train phase's seeded boxes on the predict phase's seeded
+        images: on the train phase's noise images the task-1 model detects
+        nothing, and the teacher's pseudo-labels would merge nothing."""
+        b = demo_det_batch(n, *CANVAS, num_instances=tuple(range(1, 9)), num_classes=15,
+                           gt_capacity=GT_CAPACITY, seed=seed, device="cuda")
+        packed = _pack_images(Detector(None, IMAGE_HW[::-1], "cpu"), seeded_images(n, seed))
+        return b.replace(images=packed.images.cuda(), img_shape=packed.img_shape.cuda(),
+                         ori_shape=packed.ori_shape.cuda(),
+                         scale_factor=packed.scale_factor.cuda())
+
+    cfg1 = load_config(CONFIG)
+    model = init_detector(cfg1, device="cuda", seed=SEED).model
+    model.load_state_dict(task1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    batches = [batch_of(SEED), batch_of(SEED + 1)]
+
+    # ---- 1. covariances over 2 batches (loss forward, taps on, no backward) ----
+    cov_step = make_cov_step(model)
+    total = None
+    for i, b in enumerate(batches):
+        cov, paths["cov_step"] = run_path(torch, f"cov step {i}", EXPECTED_COV,
+                                          lambda b=b: cov_step(b, gen))
+        total = nsgp.accumulate_cov(total, cov)
+    bad = [k for k, v in total.items() if not torch.isfinite(v).all()]
+    check("covariances", not bad and len(total) == sum(
+        isinstance(m, (CovConv, CovDense)) for m in model.modules()), f"non-finite {bad[:3]}")
+    log({"phase": "task chain: covariances", "layers": len(total),
+         "largest": max((tuple(v.shape) for v in total.values()), key=lambda t: t[0]),
+         "bytes": sum(v.numel() * 4 for v in total.values())})
+    profile_call(torch, lambda: cov_step(batches[0], gen), "cov step bf16 batch 16")
+
+    # ---- 2. the NSGP projections, on the host ----
+    patterns = translate_ignore_keys(cfg1.get("ignore_keys", ["rpn", "roi_head"]))
+    t0 = time.perf_counter()
+    transforms = nsgp.build_transforms(total, ignore_patterns=patterns)
+    build_s = time.perf_counter() - t0
+    del total
+    # a projection's trace is the kept dimension k; a backbone one is
+    # divided by its Frobenius norm sqrt(k), so its trace is sqrt(k)
+    kept = {k: round(float(torch.trace(P)) ** (2 if k.startswith("backbone") else 1))
+            for k, P in transforms.items()}
+    log({"phase": "task chain: build_transforms", "host_seconds": build_s,
+         "projections": len(transforms), "largest": max(P.shape[0] for P in transforms.values()),
+         "kept_dims_by_layer": kept,
+         "measured": "host clock around nsgp.build_transforms (float64 numpy eigh on the host)"})
+    check("projections", all(torch.isfinite(P).all() for P in transforms.values())
+          and len(transforms) > 50, len(transforms))
+
+    # ---- 3. the RoI store over 13 batches (65 RoIs: the raw replay draws 64) ----
+    extract = make_roi_extract_step(model)
+    stored = []
+    for i in range(13):
+        b = batches[i] if i < 2 else batch_of(SEED + i)
+        out, paths["roi_extract"] = run_path(torch, f"roi extract {i}", EXPECTED_EXTRACT,
+                                             lambda b=b: extract(b, gen))
+        stored.append([x.cpu() for x in out])
+    profile_call(torch, lambda: extract(batches[0], gen), "roi extract bf16 batch 16")
+    feats = torch.cat([s[0] for s in stored]).numpy()
+    labels = torch.cat([s[1] for s in stored]).numpy()
+    check("roi store", feats.shape == (65, 12544) and np.isfinite(feats).all(), feats.shape)
+
+    # ---- 4. prototypes, on the host ----
+    protos, proto_labels, _ = replay.build_prototypes(feats, labels, (0, 15, 20), 2,
+                                                      max_prototype=10)
+    log({"phase": "task chain: prototypes", "stored": len(feats),
+         "stored_labels": np.bincount(labels, minlength=21).tolist(), "prototypes": len(protos),
+         "prototype_labels": proto_labels.tolist()})
+    check("prototypes", len(protos) > 0 and np.isfinite(protos).all(), len(protos))
+
+    # ---- 5. EWC importance over 2 batches, then the task's terms ----
+    imp_step = make_importance_step(model)
+    st1 = TrainState(None)
+    params1 = dict(model.named_parameters())
+    importance = ewc.init_importance(params1)
+    for i, b in enumerate(batches):
+        grads, paths["importance_step"] = run_path(torch, f"importance step {i}", EXPECTED_TRAIN,
+                                                   lambda b=b: imp_step(st1, b, gen))
+        importance = ewc.accumulate_importance(importance, grads, TRAIN_BATCH, len(batches))
+    profile_call(torch, lambda: imp_step(st1, batches[0], gen), "importance step bf16 batch 16")
+    terms = ewc.append_task_terms({}, importance, params1)
+    check("ewc terms", len(terms) == 106 and all(
+        torch.isfinite(i).all() for i, _ in terms.values()), len(terms))
+    check("ewc importance", all(terms[k][0].any() for k in terms
+                                if not k.startswith(("backbone.bn1.", "backbone.layer1."))),
+          "a trainable BN got no importance")
+    del model, imp_step, extract, cov_step, grads, params1
+    torch.cuda.empty_cache()
+
+    # ---- 6. task 2: student, teacher, projections, prototypes, EWC ----
+    cfg2 = load_config(CONFIG2)
+    student = init_detector(cfg2, device="cuda", seed=SEED).model
+    student.load_state_dict(task1)
+    teacher = build_teacher(student)
+    check("teacher", teacher.config.roi_sampling_ratio == 2 and teacher.config.task_id == 1,
+          "teacher_fast with roi_align_mode 'window' keeps the 2x2 grid")
+    opt = build_train_optimizer(cfg2, student, STEPS_PER_EPOCH)
+    optim.set_transforms(opt, transforms, len(student.config.task_split) - 1)
+    st = TrainState(opt, teacher_params=dict(teacher.named_parameters()),
+                    replay_feats=torch.from_numpy(protos).cuda(),
+                    replay_labels=torch.from_numpy(proto_labels).cuda(), ewc_terms=terms)
+    step = make_train_step(student, opt, teacher_model=teacher)
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    trainable = {n for n, p in student.named_parameters() if p.requires_grad}
+    gen2 = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    batch = batches[0]
+
+    def finite(metrics, label):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).item()]
+        check(f"task-2 {label}", not bad, f"non-finite {bad}")
+        check(f"task-2 {label}", {"replay_loss_cls", "ewc_loss"} <= set(metrics), sorted(metrics))
+
+    # the assign kernel at the merged gt capacity, on this batch's merge
+    bn = batch.replace(images=normalize_images(batch.images))
+    with torch.no_grad():
+        dets = teacher.predict(bn, rescale=False)
+    cfg = student.config
+    gts = merge_pseudo_labels(batch.gt, dets, cfg.rpn_thresh, cfg.roi_thresh, cfg.pseudo_iou_skip)
+    merged = (int(gts[0].valid[:, GT_CAPACITY:].sum()), int(gts[1].valid[:, GT_CAPACITY:].sum()))
+    scores = dets.scores[dets.valid]
+    log({"phase": "task-2 pseudo-labels", "teacher_dets_valid": int(dets.valid.sum()),
+         "merged_into_rpn_gt": merged[0], "merged_into_roi_gt": merged[1],
+         "teacher_scores_quantiles": torch.quantile(scores, torch.tensor(
+             [0.5, 0.9, 0.99, 1.0], device=scores.device)).tolist() if len(scores) else None})
+    check("pseudo-labels", merged[0] > 0, "no teacher detection reaches the RPN gt set")
+    assign_at_merged_g(torch, student, gts[0], batch.img_shape)
+
+    ewc_first = []
+    for i in range(2):  # warm-up
+        (st, metrics), _ = run_path(torch, f"task-2 warm-up step {i}", EXPECTED_TASK2,
+                                    lambda: step(st, batch, gen2))
+        finite(metrics, f"warm-up step {i}")
+        ewc_first.append(float(metrics["ewc_loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(10):
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        st, metrics = step(st, batch, gen2)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        paths["task2_step"] = dict(_ext.LAUNCHES)
+        check(f"task-2 step {i} launches", paths["task2_step"] == EXPECTED_TASK2,
+              f"{paths['task2_step']} != {EXPECTED_TASK2}")
+        finite(metrics, f"step {i}")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated()
+    # step 0 runs at the stored weights (EWC 0); every later one has moved
+    check("ewc after the first update", ewc_first[1] > 0 and all(l["ewc_loss"] > 0 for l in losses),
+          f"{ewc_first} {[l['ewc_loss'] for l in losses]}")
+    med = statistics.median(times)
+    log({"phase": "task-2 train bf16 batch 16", "card": card, "launches_per_step": paths["task2_step"],
+         "step_ms_median": med, "step_ms_all": times, "img_per_s": TRAIN_BATCH / med * 1e3,
+         "max_memory_allocated_bytes": peak, "steps_taken": st.step, "ewc_loss_warm_up": ewc_first,
+         "losses_first": losses[0], "losses_last": losses[-1], "prototypes": len(protos),
+         "projections": len(opt.transforms),
+         "measured": "host clock around make_train_step's step (teacher in the step), ending in "
+                     "torch.cuda.synchronize"})
+    profile_call(torch, lambda: step(st, batch, gen2), "task-2 train bf16 batch 16 (one step)")
+
+    # ---- 7. the teacher's detections fed in: the same terms on the same draws ----
+    dets, paths["teacher_step"] = run_path(torch, "teacher step", EXPECTED_TEACHER,
+                                           lambda: make_teacher_step(teacher)(batch))
+    with torch.no_grad():
+        in_step = task_losses(student, st, bn, teacher,
+                              generator=torch.Generator(device="cuda").manual_seed(SEED + 22))
+        fed = task_losses(student, st, bn, teacher, teacher_dets=dets,
+                          generator=torch.Generator(device="cuda").manual_seed(SEED + 22))
+    same = {k: bool(torch.equal(in_step[k], fed[k])) for k in in_step}
+    log({"phase": "task-2 teacher_dets against the teacher in the step",
+         "terms_in_step": {k: float(v) for k, v in in_step.items()},
+         "terms_fed": {k: float(v) for k, v in fed.items()}, "bit_equal": same})
+    # the same deterministic kernels on the same inputs: the same bits
+    check("teacher_dets terms", set(in_step) == set(fed) and all(same.values()), same)
+    (st, metrics), paths["task2_dets_step"] = run_path(
+        torch, "task-2 step on teacher_dets", EXPECTED_TRAIN,
+        lambda: step(st, batch, gen2, teacher_dets=dets))
+    finite(metrics, "teacher_dets step")
+    frozen_moved = [n for n in before if n not in trainable
+                    and not torch.equal(before[n], student.get_parameter(n).detach())]
+    check("task-2 frozen parameters", not frozen_moved, f"moved: {frozen_moved[:5]}")
+    moved_teacher = [n for n, p in teacher.named_parameters()
+                     if not torch.equal(p.detach().cpu(), task1[n])]
+    check("teacher", not moved_teacher, f"moved off the task-1 weights: {moved_teacher[:5]}")
+    after = {k: v.detach().cpu().clone() for k, v in student.state_dict().items()}
+    del student, teacher, opt, st, step, dets, in_step, fed
+    torch.cuda.empty_cache()
+
+    # ---- 8. raw replay: the stored RoI features distilled against the teacher ----
+    cfg_raw = load_config(CONFIG2_RAW)
+    raw_student = init_detector(cfg_raw, device="cuda", seed=SEED).model
+    check("raw config", raw_student.config.replay_mode == "raw", raw_student.config.replay_mode)
+    raw_student.load_state_dict(task1)
+    raw_teacher = build_teacher(raw_student)
+    raw_opt = build_train_optimizer(cfg_raw, raw_student, STEPS_PER_EPOCH)
+    optim.set_transforms(raw_opt, transforms, len(raw_student.config.task_split) - 1)
+    raw_st = TrainState(raw_opt, teacher_params=dict(raw_teacher.named_parameters()),
+                        replay_feats=torch.from_numpy(feats).cuda(),
+                        replay_labels=torch.from_numpy(labels).cuda(), ewc_terms=terms)
+    raw_step = make_train_step(raw_student, raw_opt, teacher_model=raw_teacher)
+    raw_losses = []
+    for i in range(2):
+        (raw_st, metrics), paths["raw_replay_step"] = run_path(
+            torch, f"raw-replay step {i}", EXPECTED_TASK2, lambda: raw_step(raw_st, batch, gen2))
+        finite(metrics, f"raw-replay step {i}")
+        raw_losses.append({k: float(v) for k, v in metrics.items()})
+    log({"phase": "task-2 raw replay bf16 batch 16", "stored_rows": len(feats),
+         "losses": raw_losses})
+    # step 0: the student is the teacher (MSE 0); step 1 has moved
+    check("raw replay", raw_losses[1]["replay_loss_cls"] > 0, raw_losses)
+    del raw_student, raw_teacher, raw_opt, raw_st, raw_step
+    torch.cuda.empty_cache()
+
+    # ---- 9. f32, batch 1: the task-2 loss, card (kernels) against CPU ----
+    cfg32 = copy.deepcopy(cfg2)
+    cfg32["compute_dtype"] = "float32"
+    on_card = init_detector(cfg32, device="cuda", seed=SEED).model
+    on_card.load_state_dict(task1)
+    teacher32 = build_teacher(on_card)  # the task-1 weights
+    on_card.load_state_dict(after)  # the student after its task-2 steps
+    on_cpu = init_detector(cfg32, device="cpu", seed=SEED).model
+    on_cpu.load_state_dict(after)
+    b1 = batch_of(SEED + 3, n=1)
+    # the card teacher's detections feed both devices' gt sets: anchors
+    # inside a teacher box tie exactly in the RPN's low-quality match, so
+    # box coordinates an ulp apart could assign a few anchors differently
+    d1 = make_teacher_step(teacher32)(b1.to("cuda"))
+    g1 = merge_pseudo_labels(b1.gt.to("cuda"), d1, cfg.rpn_thresh, cfg.roi_thresh,
+                             cfg.pseudo_iou_skip)
+    kw = {dev: dict(gts=tuple(x.to(dev) for x in g1),
+                    replay=(torch.from_numpy(protos).to(dev), torch.from_numpy(proto_labels).to(dev)),
+                    ewc_terms={k: (i.to(dev), o.to(dev)) for k, (i, o) in terms.items()})
+          for dev in ("cuda", "cpu")}
+    card_vs_cpu(torch, "task-2", on_card, on_cpu, b1, g1[0].capacity, kw["cuda"], kw["cpu"])
+    return paths
 
 
 def main() -> int:
@@ -1128,6 +1548,8 @@ def main() -> int:
         launches_b1, state = slice_phase(torch, card)
         results.update(train_kernel_phase(torch, dev))
         launches_train = train_phase(torch, card, state)
+        chain = task_chain_phase(torch, card, state)
+        by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain}
 
         kernels = []
         for name in KERNELS:
@@ -1135,10 +1557,10 @@ def main() -> int:
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
-                # each main path counted from zero: one batch-1 predict, one train step
-                "launches": launches_b1[name] + launches_train[name],
-                "launches_by_path": {"predict_batch1": launches_b1[name],
-                                     "train_step": launches_train[name]},
+                # each main path counted from zero: one batch-1 predict, one
+                # task-1 train step, and one call of each task-chain path
+                "launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {path: p[name] for path, p in by_path.items()},
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "dtype": r["dtype"],

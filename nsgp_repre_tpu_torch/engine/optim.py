@@ -190,13 +190,15 @@ def set_transforms(optimizer: _NSCL, transforms: Dict[str, object], n_tasks: int
     """Install projection matrices keyed by JAX parameter paths
     (``backbone/layer2_0/conv1/kernel``, as engine/nsgp.py builds them)
     for the optimizer's parameters; ``n_tasks`` places the background
-    classifier (utils/convert.py)."""
+    classifier (utils/convert.py). A path that names no parameter raises;
+    one that names a frozen parameter (the stem and layer1 have
+    covariances too) is dropped: it has no optimizer entry, as JAX masks
+    its update to zero."""
     own = {n: p for group in optimizer.param_groups for p in group["params"]
            for n in [optimizer.names[id(p)]]}
     out = {}
     for key, P in transforms.items():
         name = port_name_from_jax(key, n_tasks)
-        if name not in own:
-            raise KeyError(f"transform {key!r} ({name}) names no parameter of this optimizer")
-        out[name] = torch.as_tensor(np.asarray(P), dtype=torch.float32, device=own[name].device)
+        if name in own:
+            out[name] = torch.as_tensor(np.asarray(P), dtype=torch.float32, device=own[name].device)
     optimizer.transforms = out

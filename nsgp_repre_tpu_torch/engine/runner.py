@@ -1,20 +1,43 @@
-"""Config → DetectorConfig, optimizer and schedule.
+"""Config → DetectorConfig, optimizer, schedule and teacher.
 
 Counterpart of nsgp_repre_tpu/engine/runner.py: ``detector_config_from_cfg``
-(copied as-is), ``build_optimizer`` (runner.py:72-99) and
-:func:`build_train_optimizer`, the schedule and trainable-mask wiring of
-``NullSpaceRunner.__init__`` (runner.py:279-336) as one helper, so that a
-config builds the same optimizer on both sides. The runners wait for
+(copied as-is), ``translate_ignore_keys`` (copied as-is),
+``build_optimizer`` (runner.py:72-99), and two pieces of
+``NullSpaceRunner.__init__`` as helpers, so that a config builds the
+same objects on both sides: :func:`build_train_optimizer` (the schedule
+and trainable-mask wiring, runner.py:279-336) and :func:`build_teacher`
+(the frozen teacher, runner.py:222-243, 338-341). The runners wait for
 slice (d) (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional
+
+import torch
 
 from ..models.detector import DetectorConfig, FasterRCNN
+from ..models.layers import FrozenBatchNorm
 from ..utils.config import Config
 from . import optim
 from .train import make_lr_schedule, trainable_mask
+
+# reference ignore_keys name their torch modules; translate prefixes to the
+# JAX parameter paths that key the covariances (nsrunner:354 default +
+# forced entries)
+_IGNORE_NAME_MAP = {
+    "rpn": "rpn_head",
+    "roi_head.bbox_head.fc_cls": "bbox_head/fc_cls",
+    "roi_head.bbox_head.fc_reg": "bbox_head/fc_reg",
+    "roi_head": "bbox_head",
+    "teacher": "teacher",
+}
+_FORCED_IGNORE = ["roi_head.bbox_head.fc_cls", "roi_head.bbox_head.fc_reg", "teacher"]
+
+
+def translate_ignore_keys(keys: List[str]) -> List[str]:
+    """A config's ``ignore_keys`` → the patterns engine/nsgp.py::build_transforms skips."""
+    return [_IGNORE_NAME_MAP.get(k, k) for k in list(keys) + _FORCED_IGNORE]
 
 
 def build_optimizer(opt_cfg: dict, lr_schedule, named_params, model: FasterRCNN,
@@ -78,6 +101,36 @@ def build_train_optimizer(cfg: Config, model: FasterRCNN, steps_per_epoch: int):
             named.append((name, p))
     paramwise_cfg = cfg.get("optim_wrapper", {}).get("paramwise_cfg") or {}
     return build_optimizer(opt_cfg, schedule, named, model, paramwise_cfg)
+
+
+def build_teacher(model: FasterRCNN) -> FasterRCNN:
+    """The frozen previous-task teacher of a task >= 2 student: a second
+    FasterRCNN with ``task_id - 1`` and a copy of the student's current
+    parameters (the reference deep-copies after loading the checkpoint,
+    nsrunner:529-549), in eval mode with no gradient. Its RoIAlign takes a
+    1x1 sample grid when ``teacher_fast`` holds and ``roi_align_mode`` is
+    not 'window', as JAX has the rule (runner.py:233-238); else the
+    student's grid. Its FrozenBatchNorm statistics ARE the student's
+    buffers (shared tensors), as JAX runs the teacher with the student's
+    ``batch_stats`` (train.py:181-185)."""
+    cfg = model.config
+    ratio = (1 if cfg.teacher_fast and cfg.roi_align_mode != "window"
+             else cfg.roi_sampling_ratio)
+    teacher = FasterRCNN(dataclasses.replace(cfg, task_id=cfg.task_id - 1,
+                                             roi_sampling_ratio=ratio))
+    dev = next(model.parameters()).device
+    teacher.to(dev)
+    with torch.no_grad():
+        for (name, p), (tname, tp) in zip(model.named_parameters(), teacher.named_parameters()):
+            if name != tname:
+                raise ValueError(f"student {name} and teacher {tname} differ")
+            tp.copy_(p)
+    for s_bn, t_bn in zip((m for m in model.modules() if isinstance(m, FrozenBatchNorm)),
+                          (m for m in teacher.modules() if isinstance(m, FrozenBatchNorm))):
+        t_bn.running_mean = s_bn.running_mean
+        t_bn.running_var = s_bn.running_var
+    teacher.requires_grad_(False)
+    return teacher.eval()
 
 
 def detector_config_from_cfg(cfg: Config) -> DetectorConfig:

@@ -1,14 +1,18 @@
-"""Train and predict steps, schedules, on-device image normalization.
+"""Train, predict and task-end steps, schedules, on-device image normalization.
 
 Counterpart of nsgp_repre_tpu/engine/train.py: ``normalize_images``,
 ``make_lr_schedule``, ``trainable_mask``, ``total_loss``, ``TrainState``,
-``make_train_step`` (the task-1 step: detector loss, backward, NSCL
-update) and ``make_eval_step``. The task-2 terms of the step (teacher
-pseudo-labels, RePRE replay, EWC) are slice (c) (ROADMAP.md, queue 1):
-a state that carries them raises.
+``make_train_step`` (detector loss with the task-2 terms: teacher
+pseudo-labels, RePRE replay, EWC; backward; NSCL update),
+``make_teacher_step``, ``make_eval_step`` and the task-end passes
+``make_cov_step`` (NSGP input covariances), ``make_roi_extract_step``
+(the RePRE RoI store) and ``make_importance_step`` (EWC importance).
 
 PyTorch runs eagerly: a step is the forward, ``backward()`` and the
-optimizer's in-place update, with no compiled program around it.
+optimizer's in-place update, with no compiled program around it. The
+JAX steps' random keys become the draws they produce: ``priorities``
+(the samplers' uniform draws, the raw replay's row choice, the RoI
+store's ranking) are passed in or drawn from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -18,8 +22,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.detector import NOT_PORTED, DetectorConfig, FasterRCNN
+from ..models.detector import DetectorConfig, FasterRCNN
+from ..models.layers import CovCollector
 from ..structures.sample import DetBatch, InstanceArray
+from .ewc import ewc_loss
+from .pseudo import merge_pseudo_labels
 
 # ImageNet mean/std, RGB (DetDataPreprocessor cfg in
 # cl_faster_rcnn_cfgs/_base_/models/faster-rcnn_r50_fpn.py)
@@ -86,7 +93,12 @@ def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """The optimizer (its parameters are the model's trainable ones), the
-    step count and the task-2 constants of slice (c), which stay None."""
+    step count and the task's constants: ``teacher_params``, the frozen
+    teacher's weights (``dict(teacher.named_parameters())`` of the model
+    given to the step as ``teacher_model``; the teacher runs only when
+    this is set, as in JAX), the RePRE prototypes (or, in raw mode, the
+    whole stored feature buffer) with their labels, and the EWC terms
+    (engine/ewc.py)."""
 
     optimizer: torch.optim.Optimizer
     step: int = 0
@@ -96,32 +108,104 @@ class TrainState:
     ewc_terms: Optional[Any] = None
 
 
-def make_train_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
-                    clip_grad_norm: Optional[float] = None):
-    """Build the task-1 train step: ``step(state, batch, generator=None,
-    priorities=None) → (state, metrics)``.
+RAW_REPLAY_ROWS = 64  # stored features distilled per step (standard_roi_replay_head.py:56-66)
 
-    ``batch.images`` are uint8 (normalized here). The sampling priorities
-    come from ``generator`` or ``priorities`` (FasterRCNN.loss).
-    ``clip_grad_norm`` mirrors mmengine OptimWrapper's ``clip_grad``
-    (global-norm clipping before the update). The state is updated in
-    place (the parameters and the optimizer's buffers) and returned;
-    ``metrics`` holds the total loss and every loss term, detached.
+
+def _raw_replay_inputs(teacher_model: FasterRCNN, state: TrainState,
+                       sel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw-feature replay (StandardRoIReplayHead.loss): the stored RoI
+    features of rows ``sel`` (at most ``RAW_REPLAY_ROWS``, distinct; JAX
+    draws them with ``jax.random.choice``) and the frozen teacher's cls
+    logits on them. Returns (feats, teacher_cls)."""
+    feats = state.replay_feats[sel.to(state.replay_feats.device).long()]
+    with torch.no_grad():
+        t_cls, _ = teacher_model.bbox_forward(feats)
+    return feats, t_cls
+
+
+def task_losses(model: FasterRCNN, state: TrainState, batch: DetBatch,
+                teacher_model: Optional[FasterRCNN] = None, generator=None,
+                priorities: Optional[Dict[str, torch.Tensor]] = None,
+                teacher_dets: Optional[InstanceArray] = None) -> Dict[str, torch.Tensor]:
+    """The loss terms of one train step on a normalized batch
+    (train.py:172-225 in JAX): the teacher's detections (``teacher_dets``,
+    else a predict of ``teacher_model`` when ``state.teacher_params`` is
+    set) merged into the RPN and RoI gt sets, the detector loss with
+    prototype replay, or in raw mode the MSE against the teacher on
+    ``priorities["replay_rows"]`` of the stored features, and ``ewc_loss``
+    when ``state.ewc_terms`` is set. Draws missing from ``priorities``
+    come from ``generator``: the replay rows first, as JAX splits its key
+    for them before the loss."""
+    p = priorities or {}
+    rpn_gt = roi_gt = None
+    if teacher_dets is not None or (teacher_model is not None and state.teacher_params is not None):
+        if teacher_dets is None:
+            teacher_dets = teacher_model.predict(batch, rescale=False)
+        rpn_gt, roi_gt = merge_pseudo_labels(
+            batch.gt, teacher_dets, rpn_thresh=model.config.rpn_thresh,
+            roi_thresh=model.config.roi_thresh, iou_skip=model.config.pseudo_iou_skip)
+
+    raw = (model.config.replay_mode == "raw" and state.replay_feats is not None
+           and state.teacher_params is not None and teacher_model is not None)
+    if raw:
+        sel = p.get("replay_rows")
+        if sel is None:
+            if generator is None:
+                raise ValueError("raw replay needs a torch.Generator or priorities['replay_rows']")
+            n = state.replay_feats.shape[0]
+            sel = torch.randperm(n, generator=generator, device=generator.device)[:RAW_REPLAY_ROWS]
+        raw_feats, raw_teacher_cls = _raw_replay_inputs(teacher_model, state, sel)
+    losses = model.loss(batch, generator=generator, priorities=p, rpn_gt=rpn_gt, roi_gt=roi_gt,
+                        replay_feats=None if raw else state.replay_feats,
+                        replay_labels=None if raw else state.replay_labels)
+    if raw:
+        losses["replay_loss_cls"] = model.raw_replay_loss(raw_feats, raw_teacher_cls)
+    if state.ewc_terms:
+        losses["ewc_loss"] = ewc_loss(dict(model.named_parameters()), state.ewc_terms)
+    return losses
+
+
+def make_teacher_step(teacher_model: FasterRCNN) -> Callable[[DetBatch], InstanceArray]:
+    """The frozen teacher's predict: a batch of uint8 images → padded
+    detections in CANVAS coordinates (``rescale=False``), the input the
+    train step's ``teacher_dets`` takes. The teacher is deterministic per
+    image, so a runner may compute these once and feed them back
+    (train.py:132-150 in JAX)."""
+
+    def fn(batch: DetBatch) -> InstanceArray:
+        return teacher_model.predict(batch.replace(images=normalize_images(batch.images)),
+                                     rescale=False)
+
+    return fn
+
+
+def make_train_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
+                    teacher_model: Optional[FasterRCNN] = None,
+                    clip_grad_norm: Optional[float] = None):
+    """Build the train step: ``step(state, batch, generator=None,
+    priorities=None, teacher_dets=None) → (state, metrics)``.
+
+    ``batch.images`` are uint8 (normalized here). The loss is
+    :func:`task_losses`: with ``teacher_dets`` (canvas-coordinate
+    detections from :func:`make_teacher_step`) the teacher does not run
+    in the step. ``clip_grad_norm`` mirrors mmengine OptimWrapper's
+    ``clip_grad`` (global-norm clipping before the update). The state is
+    updated in place (the parameters and the optimizer's buffers) and
+    returned; ``metrics`` holds the total loss and every loss term,
+    detached.
     """
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(state: TrainState, batch: DetBatch, generator: Optional[torch.Generator] = None,
-             priorities: Optional[Dict[str, torch.Tensor]] = None
+             priorities: Optional[Dict[str, torch.Tensor]] = None,
+             teacher_dets: Optional[InstanceArray] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if state.optimizer is not optimizer:
             raise ValueError("the state holds another optimizer than this step's")
-        for field in ("teacher_params", "replay_feats", "replay_labels", "ewc_terms"):
-            if getattr(state, field) is not None:
-                raise NotImplementedError(NOT_PORTED.format(
-                    f"TrainState.{field} (teacher, replay, EWC)", "slice (c), task-2 terms"))
         batch = batch.replace(images=normalize_images(batch.images))
         optimizer.zero_grad(set_to_none=True)
-        losses = model.loss(batch, generator=generator, priorities=priorities)
+        losses = task_losses(model, state, batch, teacher_model, generator, priorities,
+                             teacher_dets)
         loss = total_loss(losses)
         loss.backward()
         if clip_grad_norm is not None:
@@ -145,3 +229,64 @@ def make_eval_step(model: FasterRCNN) -> Callable[[DetBatch], InstanceArray]:
         return model.predict(batch.replace(images=normalize_images(batch.images)))
 
     return eval_fn
+
+
+def make_cov_step(model: FasterRCNN):
+    """Covariance pass (cal_fea_in, nsrunner:704-763): ``cov_fn(batch,
+    generator=None, priorities=None)`` runs the loss forward with no
+    teacher and no backward, with every CovConv/CovDense tapped, and
+    returns this batch's input covariances keyed by JAX parameter paths
+    (``backbone/layer2_0/conv1/kernel``; engine/nsgp.py)."""
+
+    @torch.no_grad()
+    def cov_fn(batch: DetBatch, generator: Optional[torch.Generator] = None,
+               priorities: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        batch = batch.replace(images=normalize_images(batch.images))
+        with CovCollector(model) as cov:
+            model.loss(batch, generator=generator, priorities=priorities)
+        return cov.result()
+
+    return cov_fn
+
+
+def make_roi_extract_step(model: FasterRCNN, target_count: int = 5):
+    """RePRE RoI-feature extraction (cal_rois, nsrunner:776-868):
+    ``roi_fn(batch, generator=None, priorities=None)`` →
+    FasterRCNN.get_bbox_stuff's outputs."""
+
+    def roi_fn(batch: DetBatch, generator: Optional[torch.Generator] = None,
+               priorities: Optional[Dict[str, torch.Tensor]] = None):
+        return model.get_bbox_stuff(batch.replace(images=normalize_images(batch.images)),
+                                    generator=generator, target_count=target_count,
+                                    priorities=priorities)
+
+    return roi_fn
+
+
+def make_importance_step(model: FasterRCNN, teacher_model: Optional[FasterRCNN] = None):
+    """EWC-importance step (calculate_save_importance, nsrunner:946-990):
+    ``imp_fn(state, batch, generator=None, priorities=None)`` → the
+    gradient of the full train-step loss (:func:`task_losses`, task-2
+    terms included, as the reference runs it after training) with respect
+    to EVERY parameter, frozen ones too, as JAX's ``jax.grad`` over all
+    parameters gives them: a dict name → tensor, zeros where no term
+    reaches a parameter. ``requires_grad`` is switched on for the step and
+    restored after it."""
+
+    def imp_fn(state: TrainState, batch: DetBatch, generator: Optional[torch.Generator] = None,
+               priorities: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        batch = batch.replace(images=normalize_images(batch.images))
+        named = list(model.named_parameters())
+        flags = [p.requires_grad for _, p in named]
+        try:
+            for _, p in named:
+                p.requires_grad_(True)
+            loss = total_loss(task_losses(model, state, batch, teacher_model, generator,
+                                          priorities))
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        finally:
+            for (_, p), f in zip(named, flags):
+                p.requires_grad_(f)
+        return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, grads)}
+
+    return imp_fn

@@ -6,7 +6,9 @@ ReLU, one cls Linear per task slice plus a background one LAST
 (``fc_cls.{T}``), one reg Linear per task. Future tasks (i + 1 >
 task_id) get cls logits -1e10 (not -inf, bbox_head.py:32,113-114) and
 zero regs. ``shared_fcs.0`` keeps torch's (C, H, W) input order; NHWC
-RoI features are fed by permuting its weight columns (bbox_head.py:73-82).
+RoI features are fed by permuting its weight columns (bbox_head.py:84-105),
+except while a CovCollector taps the layers, when they are transposed to
+torch order first (:mid_features), as in JAX.
 """
 from __future__ import annotations
 
@@ -38,14 +40,23 @@ class Shared2FCBBoxHeadTask(nn.Module):
             [CovDense(fc_out_channels, n) for n in sizes] + [CovDense(fc_out_channels, 1)])
         self.fc_reg = nn.ModuleList([CovDense(fc_out_channels, 4 * n) for n in sizes])
 
+    @staticmethod
+    def mid_features(x: torch.Tensor) -> torch.Tensor:
+        """Flattened pre-FC RoI features (R, C*7*7) in torch's (C, H, W)
+        order (bbox_head.py:73-82), the layout of stored RoI features and
+        prototypes; (R, 7, 7, C) NHWC inputs are transposed."""
+        if x.dim() > 2:
+            x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        return x
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(R, 7, 7, C) NHWC RoI features, or (R, C*7*7) in torch order →
         (cls_score (R, num_classes + 1), bbox_pred (R, 4 * num_classes))."""
-        if x.dim() == 4:
+        if x.dim() == 4 and self.shared_fcs[0].cov_tap is None:
             r, h, w, c = x.shape
             x = self.shared_fcs[0](x.reshape(r, -1), row_chw=(c, h, w))
         else:
-            x = self.shared_fcs[0](x)
+            x = self.shared_fcs[0](self.mid_features(x))
         x = torch.relu(self.shared_fcs[1](torch.relu(x)))
         n_tasks = len(self.fc_reg)
         cls_parts = []

@@ -1,13 +1,16 @@
-"""Task-aware Faster R-CNN: predict and the task-1 training loss.
+"""Task-aware Faster R-CNN: predict, the training loss and its task-2 terms.
 
 Counterpart of nsgp_repre_tpu/models/detector.py: ``DetectorConfig``
 (same fields and defaults), ``extract_feat``, ``_anchors``,
 ``_anchor_valid``, ``rpn_loss_and_proposals`` (dense and sparse RPN
 loss), ``_rpn_proposals_from_maps``, ``_sample_rois``, ``_roi_feats``,
-``roi_loss``, ``loss``, ``predict`` and ``_predict_from_proposals``.
-Shapes stay static as in JAX: 1000 proposals, 512 sampled RoIs and 100
-detections per image, padded, with validity masks. Feature maps cross
-module boundaries as NHWC views of channels_last tensors.
+``roi_loss``, ``loss`` (with the teacher's merged gt sets and prototype
+replay), ``bbox_forward``, ``replay_loss``, ``raw_replay_loss``,
+``predict``, ``_predict_from_proposals`` and ``get_bbox_stuff`` (the
+RePRE RoI store). Shapes stay static as in JAX: 1000 proposals, 512
+sampled RoIs and 100 detections per image, padded, with validity masks.
+Feature maps cross module boundaries as NHWC views of channels_last
+tensors.
 
 Hand-written kernels: on predict, the FPN output convs (conv3x3) and the
 dense RPN head (rpn_head) at batch <= ``infer_fused_max_batch``, NMS
@@ -18,11 +21,11 @@ tensors each runs its plain version.
 
 The random sampling draws its priorities (uniform on [0, 1)) in the
 order JAX splits its key: the RPN's (B, N) for the anchors, then the
-RoI head's two (B, G + proposals) draws (masks, then gather order). They
-come from a ``torch.Generator`` or are passed in, so a test can feed
-JAX's draws. The ``matrix`` proposal NMS and soft-NMS are not ported yet
-(ROADMAP.md, "Predict options not ported"), nor the task-2 terms
-(teacher, replay: slice (c)).
+RoI head's two (B, G + proposals) draws (masks, then gather order), G
+the RoI gt set's capacity (merged with the teacher's detections on
+task 2). They come from a ``torch.Generator`` or are passed in, so a
+test can feed JAX's draws. The ``matrix`` proposal NMS and soft-NMS are
+not ported yet (ROADMAP.md, "Predict options not ported").
 """
 from __future__ import annotations
 
@@ -134,12 +137,14 @@ class DetectorConfig:
     # only when the batch is at most this size; larger batches use
     # library convs, as the JAX package leaves them to XLA
     infer_fused_max_batch: int = 1
-    # teacher RoIAlign with a 1x1 sample grid (teacher: slice (c), not ported)
+    # the teacher's RoIAlign takes a 1x1 sample grid, unless
+    # roi_align_mode is 'window' (engine/runner.py::build_teacher)
     teacher_fast: bool = True
     # RoIAlign implementation in JAX: 'window' (Pallas) or 'gather' (XLA,
     # reference routing). Both run the RoIAlign kernel here.
     roi_align_mode: str = "window"
-    # RePRE replay variant: 'prototype' or 'raw' (slice (c), not ported)
+    # RePRE replay variant: 'prototype' (cross-entropy of the prototypes'
+    # logits) or 'raw' (MSE against the teacher's logits on stored features)
     replay_mode: str = "prototype"
     # per-image pad divisor for anchor valid-flags (mmdet Pad transform,
     # pad_size_divisor=32 in the detector data_preprocessor config)
@@ -467,18 +472,20 @@ class FasterRCNN(nn.Module):
         ).to(self.dtype)
 
     def roi_loss(self, feats, proposals: InstanceArray, gt: InstanceArray, u=None, u2=None,
-                 generator=None) -> Dict[str, torch.Tensor]:
+                 generator=None, replay_feats: Optional[torch.Tensor] = None,
+                 replay_labels: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """RoI-head losses on sampled proposals (standard_roi_head.py:95,
-        detector.py:586-613): ``loss_cls``, ``loss_bbox`` and ``acc``.
-        ``u``/``u2``: (B, G + P) sampling priorities, else drawn from
-        ``generator`` in that order."""
+        detector.py:586-613): ``loss_cls``, ``loss_bbox`` and ``acc``, and
+        ``replay_loss_cls`` when prototypes are given. ``u``/``u2``:
+        (B, G + P) sampling priorities, else drawn from ``generator`` in
+        that order."""
         cfg = self.config
         B, P = proposals.boxes.shape[:2]
         dev = proposals.boxes.device
         shape = (B, gt.boxes.shape[1] + P)
         u = self._priorities(u, shape, generator, dev)
         u2 = self._priorities(u2, shape, generator, dev)
-        gt = InstanceArray(boxes=gt.boxes.to(dev), labels=gt.labels.to(dev), valid=gt.valid.to(dev))
+        gt = gt.to(dev)
         rois, batch_idx, labels, valid, pos, tgt = self._sample_rois(proposals, gt, u, u2)
         roi_feats = self._roi_feats(feats, rois, batch_idx)
         cls_score, bbox_pred = self.bbox_head(roi_feats)
@@ -494,25 +501,65 @@ class FasterRCNN(nn.Module):
         cls_idx = torch.clamp(labels, 0, cfg.num_classes - 1).long()
         sel = torch.gather(pred4, 1, cls_idx[:, None, None].expand(n, 1, 4))[:, 0]
         loss_bbox = weighted_l1(sel, tgt, pos[:, None].float(), avg)
-        return {
+        losses = {
             "loss_cls": loss_cls,
             "loss_bbox": loss_bbox,
             "acc": accuracy(cls_score, labels, label_w),
         }
+        if replay_feats is not None:
+            losses["replay_loss_cls"] = self.replay_loss(replay_feats, replay_labels)
+        return losses
+
+    def bbox_forward(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bbox head on stored flattened RoI features (R, C*7*7), torch
+        order: f32 (cls_score, bbox_pred). The raw replay's teacher logits."""
+        cls, reg = self.bbox_head(roi_feats.to(self.dtype))
+        return cls.float(), reg.float()
+
+    def raw_replay_loss(self, replay_feats: torch.Tensor, teacher_cls: torch.Tensor) -> torch.Tensor:
+        """StandardRoIReplayHead's MSE of the student's cls logits against
+        the frozen teacher's on stored RoI features
+        (standard_roi_replay_head.py:73-104), over the columns both heads
+        have active: ``[:task_split[max(task_id - 1, 1)]] ++ [background]``
+        (detector.py:621-639)."""
+        cls, _ = self.bbox_forward(replay_feats)
+        pre = self.config.task_split[max(self.config.task_id - 1, 1)]
+        s = torch.cat([cls[:, :pre], cls[:, -1:]], dim=-1)
+        t = torch.cat([teacher_cls[:, :pre], teacher_cls[:, -1:]], dim=-1)
+        return torch.mean(torch.square(s - t))
+
+    def replay_loss(self, replay_feats: torch.Tensor, replay_labels: torch.Tensor) -> torch.Tensor:
+        """RePRE prototype replay (standard_roi_replay_head.py:468-501): the
+        prototypes' logits over ``[:task_split[task_id]] ++ [background]``,
+        and the cross-entropy of their SOFTMAX, a softmax taken twice as
+        the reference takes it (it changes the gradients)."""
+        cls_score, _ = self.bbox_head(replay_feats.to(self.dtype))
+        cls_score = cls_score.float()
+        pre = self.config.task_split[self.config.task_id]
+        sliced = torch.cat([cls_score[:, :pre], cls_score[:, -1:]], dim=-1)
+        logp = torch.log_softmax(torch.softmax(sliced, dim=-1), dim=-1)
+        return -torch.gather(logp, 1, replay_labels.long()[:, None]).mean()
 
     def loss(self, batch: DetBatch, generator=None,
-             priorities: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """The task-1 detector loss (faster_rcnn_roi_replay.py:44 without
-        teacher and replay; detector.py:667-687). ``batch.images`` are
-        normalized. ``priorities`` may hold the sampling draws ``rpn``
-        (B, N anchors), ``roi`` and ``roi2`` (B, G + proposals); the
-        missing ones are drawn from ``generator`` in that order."""
+             priorities: Optional[Dict[str, torch.Tensor]] = None,
+             rpn_gt: Optional[InstanceArray] = None, roi_gt: Optional[InstanceArray] = None,
+             replay_feats: Optional[torch.Tensor] = None,
+             replay_labels: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The detector loss (faster_rcnn_roi_replay.py:44, detector.py:667-687).
+        ``batch.images`` are normalized. ``rpn_gt``/``roi_gt``: the gt sets
+        merged with the teacher's detections (engine/pseudo.py), else
+        ``batch.gt``; ``replay_feats``/``replay_labels``: prototypes.
+        ``priorities`` may hold the sampling draws ``rpn`` (B, N anchors),
+        ``roi`` and ``roi2`` (B, G + proposals); the missing ones are drawn
+        from ``generator`` in that order."""
         p = priorities or {}
         feats = self.extract_feat(batch.images)
         rpn_losses, proposals = self.rpn_loss_and_proposals(
-            feats, batch.gt, batch.img_shape, with_loss=True, u=p.get("rpn"), generator=generator)
-        roi_losses = self.roi_loss(feats, proposals, batch.gt, u=p.get("roi"), u2=p.get("roi2"),
-                                   generator=generator)
+            feats, rpn_gt if rpn_gt is not None else batch.gt, batch.img_shape, with_loss=True,
+            u=p.get("rpn"), generator=generator)
+        roi_losses = self.roi_loss(feats, proposals, roi_gt if roi_gt is not None else batch.gt,
+                                   u=p.get("roi"), u2=p.get("roi2"), generator=generator,
+                                   replay_feats=replay_feats, replay_labels=replay_labels)
         return {**rpn_losses, **roi_losses}
 
     # ------------------------------------------------------------------
@@ -562,4 +609,47 @@ class FasterRCNN(nn.Module):
             labels=torch.gather(flat_labels, 1, keep),
             valid=dv,
             scores=torch.gather(flat_scores, 1, keep),
+        )
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def get_bbox_stuff(self, batch: DetBatch, generator=None, target_count: int = 5,
+                       priorities: Optional[Dict[str, torch.Tensor]] = None):
+        """Exactly ``target_count`` RoI features of the batch for the RePRE
+        store (standard_roi_replay_head.py:168-196, detector.py:770-807):
+        the sampled RoIs ranked foreground first, then the other valid
+        ones, in a random order within each group. ``batch.images`` are
+        normalized. ``priorities`` may hold ``roi`` and ``roi2`` (B, G +
+        proposals; the sampler's) and ``cap`` (B * rcnn_num; the ranking),
+        else they are drawn from ``generator`` in that order.
+
+        Returns f32 features (T, C*7*7) in torch order, labels, cls
+        weights (ones), regression targets, bbox weights, rois and a
+        validity mask (all True).
+        """
+        cfg = self.config
+        p = priorities or {}
+        feats = self.extract_feat(batch.images, inference=True)
+        _, proposals = self.rpn_loss_and_proposals(feats, batch.gt, batch.img_shape,
+                                                   with_loss=False)
+        B, P = proposals.boxes.shape[:2]
+        dev = proposals.boxes.device
+        gt = batch.gt.to(dev)
+        shape = (B, gt.boxes.shape[1] + P)
+        u = self._priorities(p.get("roi"), shape, generator, dev)
+        u2 = self._priorities(p.get("roi2"), shape, generator, dev)
+        rois, batch_idx, labels, valid, pos, tgt = self._sample_rois(proposals, gt, u, u2)
+        mid = self.bbox_head.mid_features(self._roi_feats(feats, rois, batch_idx)).float()
+        u3 = self._priorities(p.get("cap"), valid.shape, generator, dev)
+        # exactly target_count: foreground first, then the other valid RoIs
+        key = torch.where(pos & valid, 2.0 + u3, torch.where(valid, u3, -1.0))
+        order = top_k(key, target_count)[1]
+        return (
+            mid[order],
+            labels[order],
+            torch.ones(target_count, dtype=torch.float32, device=dev),
+            tgt[order],
+            pos[order, None].float().repeat(1, 4),
+            rois[order],
+            torch.ones(target_count, dtype=torch.bool, device=dev),
         )

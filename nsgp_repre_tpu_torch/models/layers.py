@@ -10,17 +10,27 @@ kernels take.
 Every layer computes in the dtype of its input (the detector's compute
 dtype) with f32 parameters cast at use, and rounds where the JAX layers
 round: the conv or matmul result is rounded to the compute dtype before
-the (rounded) bias is added. The covariance taps of the JAX layers feed
-the NSGP covariance pass of slice (c) (ROADMAP.md, queue 1) and are not
-ported yet; the training step of slice (b) does not need them.
+the (rounded) bias is added.
+
+Covariance taps (layers.py:92-96, :237-242 in JAX; the reference's
+forward hooks, nsrunner_roi_replay.py:876-916): while a
+:class:`CovCollector` is entered, every ``CovConv`` and ``CovDense`` of
+its model adds the covariance of its batch-mean input to the collector,
+summed over calls. A conv's input is unfolded into (c, kh, kw) patches
+(``F.unfold``'s order, the rows of the (O, I·kh·kw) weight); a linear
+layer's is a rank-1 outer product. With no collector a layer pays one
+attribute test.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.rpn_head_cuda import conv3x3
+from ..utils.convert import jax_path_from_port
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +51,17 @@ class CovConv(nn.Conv2d):
     CovConv's forward-only fused path does in JAX (layers.py:105-132).
     """
 
+    cov_tap = None  # set by CovCollector while it is entered
+
+    def input_cov(self, x: torch.Tensor) -> torch.Tensor:
+        """(I·kh·kw)² covariance of the batch-mean input's patches, f32."""
+        xm = x.float().mean(dim=0, keepdim=True)
+        p = F.unfold(xm, self.kernel_size, self.dilation, self.padding, self.stride)[0]
+        return p @ p.T
+
     def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        if self.cov_tap is not None:
+            self.cov_tap(self, self.input_cov(x))
         dt = x.dtype
         if (
             fused
@@ -67,7 +87,18 @@ class CovDense(nn.Linear):
     torch's (C, H, W) order instead of transposing the activation
     (layers.py:228-253)."""
 
+    cov_tap = None  # set by CovCollector while it is entered
+
+    def input_cov(self, x: torch.Tensor) -> torch.Tensor:
+        """in² outer product of the batch-mean input row, f32."""
+        xm = x.float().mean(dim=0, keepdim=True)
+        return xm.T @ xm
+
     def forward(self, x: torch.Tensor, row_chw=None) -> torch.Tensor:
+        if self.cov_tap is not None:
+            if row_chw is not None:
+                raise ValueError("the covariance tap takes the torch-order input path")
+            self.cov_tap(self, self.input_cov(x))
         w = self.weight
         if row_chw is not None:
             c, h, ww = row_chw
@@ -97,3 +128,36 @@ class FrozenBatchNorm(nn.Module):
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         shift = self.bias - self.running_mean * inv
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class CovCollector:
+    """The covariance pass's collector (JAX's mutable ``'cov'``
+    collection): ``with CovCollector(detector) as cov:`` taps every
+    ``CovConv``/``CovDense`` of ``model`` until the block ends, and
+    ``cov.result()`` gives the sums keyed as JAX's
+    ``cov_collection_to_param_names`` keys them (``backbone/layer2_0/conv1/kernel``).
+    While it is entered the RPN head takes its unfused path and the bbox
+    head its torch-order path, as in JAX, so that every layer sees the
+    input the JAX layer sees."""
+
+    def __init__(self, model: nn.Module):
+        self.layers = {m: name for name, m in model.named_modules()
+                       if isinstance(m, (CovConv, CovDense))}
+        self.n_tasks = len(model.config.task_split) - 1  # places the background classifier
+        self.sums: Dict[nn.Module, torch.Tensor] = {}
+
+    def _add(self, layer: nn.Module, cov: torch.Tensor) -> None:
+        self.sums[layer] = cov if layer not in self.sums else self.sums[layer] + cov
+
+    def __enter__(self) -> "CovCollector":
+        for m in self.layers:
+            m.cov_tap = self._add
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for m in self.layers:
+            del m.cov_tap
+
+    def result(self) -> Dict[str, torch.Tensor]:
+        return {jax_path_from_port(f"{self.layers[m]}.weight", self.n_tasks): c
+                for m, c in self.sums.items()}

@@ -9,7 +9,8 @@ as in the JAX package.
 sparse-loss train path, where the dense head only feeds the proposals
 (data, no gradient). ``at_positions`` evaluates the same three layers at
 gathered 3x3 patches for the sparse RPN loss; gradients reach the
-weights and the features through it.
+weights and the features through it. It reads the weights directly, so
+the covariance taps fire only on the dense call.
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ class RPNHead(nn.Module):
         """NHWC levels → per-level (cls (B,H,W,A), deltas (B,H,W,4A)).
 
         ``fused=True`` (inference only) runs the fused RPN head kernel,
-        one launch per level (plain version for CPU tensors)."""
-        if fused:
+        one launch per level (plain version for CPU tensors), unless a
+        CovCollector taps the convs (rpn_head.py:60-65 in JAX)."""
+        if fused and self.rpn_conv.cov_tap is None:
             return self._fused(feats)
         cls_out, reg_out = [], []
         for f in feats:

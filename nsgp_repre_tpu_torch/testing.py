@@ -4,7 +4,7 @@ Counterpart of nsgp_repre_tpu/testing.py: :func:`demo_det_batch` (random
 uint8 images and random padded ground truth from one numpy seed, so the
 same seed gives the same numbers as the JAX factory) and
 :func:`tiny_detector_config` (a shrunken detector for fast CPU runs).
-:func:`split_loss_and_grads` runs the task-1 loss in the two parts
+:func:`split_loss_and_grads` runs the train step's loss in the two parts
 where two devices can part ways, so that a card run can be held against
 a CPU run of the same weights.
 """
@@ -15,6 +15,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .engine.ewc import ewc_loss
 from .engine.train import normalize_images, total_loss
 from .models.detector import DetectorConfig, FasterRCNN
 from .structures.sample import DetBatch, InstanceArray
@@ -83,25 +84,37 @@ def split_loss_and_grads(
     batch: DetBatch,
     priorities: Dict[str, torch.Tensor],
     proposals: Optional[InstanceArray] = None,
+    gts: Optional[Tuple[InstanceArray, InstanceArray]] = None,
+    replay: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ewc_terms=None,
 ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor], InstanceArray]:
     """``FasterRCNN.loss`` and its backward, cut between the RPN and the
     RoI head: the RPN losses and proposals, then the RoI losses on
     ``proposals`` when given (another device's), else on this run's own.
     Near-ties in the proposal top-k and NMS can swap a few proposals
     between devices; feeding one run's proposals to the other keeps the
-    comparison to the arithmetic. Returns the loss terms, the gradient
-    of every parameter that got one (on the CPU) and the proposals."""
+    comparison to the arithmetic. A task-2 loss takes the merged
+    ``(rpn_gt, roi_gt)`` (from one device's teacher detections, for the
+    same reason), the prototypes ``replay = (feats, labels)`` and the
+    ``ewc_terms``, on ``model``'s device. Returns the loss terms, the
+    gradient of every parameter that got one (on the CPU) and the
+    proposals."""
     dev = next(model.parameters()).device
     model.zero_grad(set_to_none=True)
     b = batch.to(dev)
     b = b.replace(images=normalize_images(b.images))
+    rpn_gt, roi_gt = gts if gts is not None else (b.gt, b.gt)
     feats = model.extract_feat(b.images)
-    rpn, props = model.rpn_loss_and_proposals(feats, b.gt, b.img_shape, with_loss=True,
+    rpn, props = model.rpn_loss_and_proposals(feats, rpn_gt.to(dev), b.img_shape, with_loss=True,
                                               u=priorities["rpn"])
     if proposals is not None:
         props = proposals.to(dev)
-    roi = model.roi_loss(feats, props, b.gt, u=priorities["roi"], u2=priorities["roi2"])
+    roi = model.roi_loss(feats, props, roi_gt.to(dev), u=priorities["roi"], u2=priorities["roi2"],
+                         replay_feats=None if replay is None else replay[0],
+                         replay_labels=None if replay is None else replay[1])
     losses = {**rpn, **roi}
+    if ewc_terms:
+        losses["ewc_loss"] = ewc_loss(dict(model.named_parameters()), ewc_terms)
     total_loss(losses).backward()
     grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
              if p.grad is not None}

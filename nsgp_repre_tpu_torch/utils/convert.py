@@ -9,7 +9,8 @@ state dict; it is the exact inverse of
 nsgp_repre_tpu/utils/torch_convert.py::convert_detector_state_dict. A
 JAX gradient tree has the parameters' paths, so the same call maps
 gradients name by name. :func:`port_name_from_jax` maps one parameter
-path (the key of the NSGP transforms and covariances) to a port name.
+path (the key of the NSGP transforms and covariances) to a port name, and
+:func:`jax_path_from_port` maps a port name back.
 """
 from __future__ import annotations
 
@@ -41,6 +42,23 @@ _MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
     (r"bbox_head/fc_reg(\d+)", lambda m, _: f"{_BBOX}.fc_reg.{m[1]}"),
 ]
 
+# the inverse of _MODULES: (port module name pattern, JAX module path template)
+_JAX_MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
+    (r"backbone\.layer(\d+)\.(\d+)\.downsample\.0",
+     lambda m, _: f"backbone/layer{m[1]}_{m[2]}/downsample_conv"),
+    (r"backbone\.layer(\d+)\.(\d+)\.downsample\.1",
+     lambda m, _: f"backbone/layer{m[1]}_{m[2]}/downsample_bn"),
+    (r"backbone\.layer(\d+)\.(\d+)\.(conv\d|bn\d)", lambda m, _: f"backbone/layer{m[1]}_{m[2]}/{m[3]}"),
+    (r"backbone\.(conv1|bn1)", lambda m, _: f"backbone/{m[1]}"),
+    (r"neck\.lateral_convs\.(\d+)\.conv", lambda m, _: f"neck/lateral_conv{m[1]}"),
+    (r"neck\.fpn_convs\.(\d+)\.conv", lambda m, _: f"neck/fpn_conv{m[1]}"),
+    (r"rpn_head\.(rpn_conv|rpn_cls|rpn_reg)", lambda m, _: f"rpn_head/{m[1]}"),
+    (rf"{_BBOX}\.shared_fcs\.(\d+)", lambda m, _: f"bbox_head/shared_fc{int(m[1]) + 1}"),
+    (rf"{_BBOX}\.fc_cls\.(\d+)",
+     lambda m, n_tasks: "bbox_head/fc_cls_bg" if int(m[1]) == n_tasks else f"bbox_head/fc_cls{m[1]}"),
+    (rf"{_BBOX}\.fc_reg\.(\d+)", lambda m, _: f"bbox_head/fc_reg{m[1]}"),
+]
+
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -69,6 +87,26 @@ def port_name_from_jax(path: str, n_tasks: int) -> str:
     if leaf not in _PARAM_LEAVES:
         raise KeyError(f"{path!r} is not a parameter path (leaf {leaf!r})")
     return f"{_module_name(module, n_tasks)}.{_PARAM_LEAVES[leaf]}"
+
+
+def jax_path_from_port(name: str, n_tasks: int) -> str:
+    """Port parameter name (``backbone.layer2.0.conv1.weight``) → JAX
+    parameter path (``backbone/layer2_0/conv1/kernel``): the inverse of
+    :func:`port_name_from_jax`. A norm's weight is JAX's ``scale``."""
+    module, leaf = name.rsplit(".", 1)
+    for pattern, path in _JAX_MODULES:
+        m = re.fullmatch(pattern, module)
+        if m:
+            jax_module = path(m, n_tasks)
+            break
+    else:
+        raise KeyError(f"no JAX module for port name {name!r}")
+    if leaf == "bias":
+        return f"{jax_module}/bias"
+    if leaf != "weight":
+        raise KeyError(f"{name!r} is not a parameter name (leaf {leaf!r})")
+    norm = re.search(r"bn\d?$", jax_module) is not None
+    return f"{jax_module}/{'scale' if norm else 'kernel'}"
 
 
 def state_dict_from_jax(

@@ -503,3 +503,128 @@ def test_small_train_step_card_matches_cpu(dev):
         assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 1,
                                        "roi_align_bwd": 1, "assign": 1, "gather": 0}
 
+
+
+def test_small_task2_step_card_matches_cpu(dev):
+    """The task-2 loss (the card teacher's detections merged into both
+    devices' gt sets, prototype replay, EWC) and its backward in f32 at
+    batch 2, card against CPU: loss terms within 1e-4 relative, every
+    gradient within 1e-3 of its largest magnitude (the train-step test's
+    rule). Then two make_train_step steps on the card with the teacher in
+    the step launch the kernels of both models: the teacher's predict
+    (proposal and multiclass NMS, RoIAlign) and the student's step."""
+    from nsgp_repre_tpu_torch.engine import ewc
+    from nsgp_repre_tpu_torch.engine.pseudo import merge_pseudo_labels
+    from nsgp_repre_tpu_torch.engine.runner import build_teacher, build_train_optimizer
+    from nsgp_repre_tpu_torch.engine.train import TrainState, make_teacher_step, make_train_step
+    from nsgp_repre_tpu_torch.models.detector import FasterRCNN
+    from nsgp_repre_tpu_torch.testing import (demo_det_batch, split_loss_and_grads,
+                                              tiny_detector_config)
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    # a tiny task-2 student and its teacher on the CPU and on the card (the
+    # same weights), prototypes, EWC terms and a batch
+    cfg = tiny_detector_config(rpn_num=64, rcnn_num=32, task_id=2)
+    cpu = FasterRCNN(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.rpn_head.rpn_cls.weight.mul_(20.0)
+        for fc in cpu.bbox_head.fc_cls:
+            fc.weight.mul_(30.0)
+    models = {}
+    g = torch.Generator().manual_seed(3)
+    protos = torch.randn(4, 12544, generator=g)
+    labels = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
+    for where in ("cpu", dev):
+        m = FasterRCNN(cfg)
+        m.load_state_dict(cpu.state_dict())
+        m.to(where)
+        teacher = build_teacher(m)
+        with torch.no_grad():  # the student moved off the teacher, so EWC counts
+            for n, p in m.named_parameters():
+                if ewc.is_ewc_param(n):
+                    p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(len(n)))
+                          .to(where) * 0.05)
+        params = {n: p for n, p in teacher.named_parameters()}
+        imp = {k: torch.full_like(v, 1e-3) for k, v in ewc.init_importance(params).items()}
+        models[str(where)] = (m, teacher, ewc.append_task_terms({}, imp, params))
+    batch = demo_det_batch(2, 64, 96, num_instances=(2, 3), num_classes=2, gt_capacity=4, seed=1)
+    card, card_teacher, card_terms = models[str(dev)]
+    cpu, _, cpu_terms = models["cpu"]
+    dets = make_teacher_step(card_teacher)(batch.to(dev))
+    gts = merge_pseudo_labels(batch.gt.to(dev), dets, cfg.rpn_thresh, cfg.roi_thresh,
+                              cfg.pseudo_iou_skip)
+    assert int(gts[0].valid[:, 4:].sum()) > 0
+    n = sum(-(-64 // s) * -(-96 // s) * cfg.num_base_priors for s in cfg.anchor_strides)
+    pg = torch.Generator().manual_seed(5)
+    G = gts[0].capacity
+    pri = {"rpn": torch.rand(2, n, generator=pg),
+           "roi": torch.rand(2, G + cfg.rpn_max_per_img, generator=pg)}
+    pri["roi2"] = torch.rand(pri["roi"].shape, generator=pg)
+    _ext.reset_launches()
+    got_l, got_g, props = split_loss_and_grads(card, batch, pri, gts=gts,
+                                               replay=(protos.to(dev), labels.to(dev)),
+                                               ewc_terms=card_terms)
+    launches = dict(_ext.LAUNCHES)
+    ref_l, ref_g, _ = split_loss_and_grads(cpu, batch, pri, proposals=props,
+                                           gts=tuple(x.to("cpu") for x in gts),
+                                           replay=(protos, labels), ewc_terms=cpu_terms)
+    assert launches["assign"] == 1 and launches["roi_align"] == 1 and launches["roi_align_bwd"] == 1
+    assert ref_l["replay_loss_cls"] > 0 and ref_l["ewc_loss"] > 0
+    for k in ref_l:
+        assert abs(got_l[k] - ref_l[k]) <= 1e-4 * max(abs(ref_l[k]), 1e-3), (k, got_l[k], ref_l[k])
+    assert got_g.keys() == ref_g.keys()
+    for k in ref_g:
+        scale = ref_g[k].abs().max().item()
+        assert (got_g[k] - ref_g[k]).abs().max().item() <= 1e-3 * max(scale, 1e-6), k
+
+    opt = build_train_optimizer(load_config("cl_faster_rcnn_cfgs/incremental_task/"
+                                            "cl_faster_rcnn_nsgp_repre_15_5_2.py"), card, 10)
+    state = TrainState(opt, teacher_params=dict(card_teacher.named_parameters()),
+                       replay_feats=protos.to(dev), replay_labels=labels.to(dev),
+                       ewc_terms=card_terms)
+    step = make_train_step(card, opt, teacher_model=card_teacher)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        _ext.reset_launches()
+        state, metrics = step(state, batch.to(dev), gen)
+        assert all(torch.isfinite(v).item() for v in metrics.values())
+        assert {"replay_loss_cls", "ewc_loss"} <= set(metrics)
+        assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 5, "nms": 3, "roi_align": 2,
+                                       "roi_align_bwd": 1, "assign": 1, "gather": 0}
+
+
+def test_small_cov_step_card_matches_cpu(dev):
+    """make_cov_step in f32 at batch 2 on the card and on the CPU, the same
+    weights and priorities: the same keys, every covariance within 1e-4 of
+    its largest entry (f32 sums of the same patch products in other
+    orders; the RoIs of the bbox head's taps are sampled from each
+    device's own proposals, which agree here); the loss forward launches
+    the assign, NMS and RoIAlign kernels once and no RPN head kernel (the
+    taps run the head unfused)."""
+    from nsgp_repre_tpu_torch.engine.train import make_cov_step
+    from nsgp_repre_tpu_torch.models.detector import FasterRCNN
+    from nsgp_repre_tpu_torch.testing import demo_det_batch, tiny_detector_config
+
+    cfg = tiny_detector_config(rpn_num=64, rcnn_num=32)
+    cpu = FasterRCNN(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.rpn_head.rpn_cls.weight.mul_(20.0)
+    card = FasterRCNN(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    batch = demo_det_batch(2, 64, 96, num_instances=(2, 3), num_classes=2, gt_capacity=4, seed=1)
+    n = sum(-(-64 // s) * -(-96 // s) * cfg.num_base_priors for s in cfg.anchor_strides)
+    pg = torch.Generator().manual_seed(5)
+    pri = {"rpn": torch.rand(2, n, generator=pg), "roi": torch.rand(2, 4 + cfg.rpn_max_per_img,
+                                                                    generator=pg)}
+    pri["roi2"] = torch.rand(pri["roi"].shape, generator=pg)
+    _ext.reset_launches()
+    got = make_cov_step(card)(batch.to(dev), priorities=pri)
+    torch.cuda.synchronize()
+    assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 0, "nms": 1, "roi_align": 1,
+                                   "roi_align_bwd": 0, "assign": 1, "gather": 0}
+    ref = make_cov_step(cpu)(batch, priorities=pri)
+    assert got.keys() == ref.keys() and "rpn_head/rpn_conv/kernel" in ref
+    for k, r in ref.items():
+        scale = r.abs().max().item()
+        assert (got[k].cpu() - r).abs().max().item() <= 1e-4 * scale, k

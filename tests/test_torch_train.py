@@ -308,24 +308,46 @@ def test_train_steps_match_jax(clip):
         assert torch.equal(buf, before[name]), name
 
 
-def test_train_step_is_seeded_and_refuses_slice_c_terms():
+def test_train_step_is_seeded_and_runs_task2_terms():
     """With no priorities, the step draws them from the generator: the
-    same seed gives the same step. A state with task-2 terms raises."""
+    same seed gives the same step, with a task-1 state and with a task-2
+    state (teacher in the step, prototypes, EWC terms), whose step reports
+    the replay and EWC terms. (It replaces a test that a task-2 state
+    raised: those terms are ported.)"""
+    import dataclasses
+
+    from nsgp_repre_tpu_torch.engine import ewc
+    from nsgp_repre_tpu_torch.engine.runner import build_teacher
+
     cfg = ttesting.tiny_detector_config()
     tcfg = load_config(CFG)
     batch = ttesting.demo_det_batch(2, 64, 64, num_instances=(1, 3), num_classes=2,
                                     gt_capacity=4, seed=3)
-    results = []
-    for _ in range(2):
-        m = FasterRCNN(cfg).init_weights(torch.Generator().manual_seed(0))
-        opt = build_train_optimizer(tcfg, m, 10)
-        step = make_train_step(m, opt)
-        _, metrics = step(TrainState(opt), batch, torch.Generator().manual_seed(7))
-        results.append({k: float(v) for k, v in metrics.items()})
-    assert results[0] == results[1]
-    assert all(np.isfinite(v) for v in results[0].values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        step(TrainState(opt, teacher_params={}), batch, torch.Generator().manual_seed(7))
+    for task_id in (1, 2):
+        results = []
+        for _ in range(2):
+            m = FasterRCNN(dataclasses.replace(cfg, task_id=task_id))
+            m.init_weights(torch.Generator().manual_seed(0))
+            opt = build_train_optimizer(tcfg, m, 10)
+            state, teacher = TrainState(opt), None
+            if task_id == 2:
+                teacher = build_teacher(m)
+                params = dict(m.named_parameters())
+                imp = {k: torch.full_like(v, 0.5) for k, v in ewc.init_importance(params).items()}
+                g = torch.Generator().manual_seed(1)
+                state = TrainState(opt, teacher_params=dict(teacher.named_parameters()),
+                                   replay_feats=torch.randn(3, 12544, generator=g),
+                                   replay_labels=torch.tensor([0, 1, 1], dtype=torch.int32),
+                                   ewc_terms=ewc.append_task_terms({}, imp, params))
+                with torch.no_grad():  # off the stored weights, so EWC counts
+                    m.backbone.layer2[0].bn1.bias.add_(0.1)
+            step = make_train_step(m, opt, teacher_model=teacher)
+            _, metrics = step(state, batch, torch.Generator().manual_seed(7))
+            results.append({k: float(v) for k, v in metrics.items()})
+        assert results[0] == results[1]
+        assert all(np.isfinite(v) for v in results[0].values())
+        if task_id == 2:
+            assert results[0]["replay_loss_cls"] > 0 and results[0]["ewc_loss"] > 0
 
 
 def test_split_loss_and_grads_equals_loss():
