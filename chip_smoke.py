@@ -49,7 +49,21 @@ Phases, each of which raises on a failed check (exit code 1):
    same terms bit for bit), frozen parameters and the teacher bit-equal,
    2 raw-replay steps, and the f32 batch-1 task-2 loss and gradients on
    the card against the CPU; each path's launches, step time, peak
-   memory, profiles of each pass.
+   memory, profiles of each pass;
+8. runner: tools/torch_train.py's NullSpaceRunner over a synthetic VOC2007
+   tree (16 trainval and 16 test images, 600x1000, as binary PPM) at full
+   width and depth: task 1 of the 15+5 configs from the predict phase's
+   weights (a ``best_*.npz`` written by the port's checkpoint writer),
+   then task 2 from task 1's dir (projections, EWC terms, prototypes, the
+   teacher's pseudo-label pre-pass, 3 steps fed its cached detections),
+   each with validation and the task-end passes; the files of both work
+   dirs, the checkpoint keys (JAX paths) and round trip, the teacher
+   bit-equal to task 1's best checkpoint, each train()'s launches against
+   the batches its passes ran, tools/torch_test.py's detections and mAP
+   against the runner's, and a resumed task-2 runner; each stage's
+   seconds, the loop's steps/s against the bare step, the loader's share
+   of the loop, the decode and copy time of a batch, val img/s and peak
+   memory.
 
 The last lines are the card line, one JSON object listing the kernels,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -1076,7 +1090,7 @@ def train_phase(torch, card: str, state):
     b1 = demo_det_batch(1, *CANVAS, num_instances=(6,), num_classes=15, gt_capacity=GT_CAPACITY,
                         seed=SEED + 3)
     card_vs_cpu(torch, "train", on_card, on_cpu, b1, GT_CAPACITY, {}, {})
-    return launches
+    return launches, med
 
 
 def card_vs_cpu(torch, label, on_card, on_cpu, b1, gt_slots, card_kw, cpu_kw):
@@ -1504,6 +1518,293 @@ def task_chain_phase(torch, card: str, task1):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# runner phase: the two-task chain as a user runs it, over a synthetic VOC tree
+# ---------------------------------------------------------------------------
+
+RUNNER_IMAGES = 16  # per split: with RepeatDataset times=3 and batch 16, 3 steps an epoch
+OBJ_XML = ("<object><name>{}</name><difficult>0</difficult><bndbox><xmin>{}</xmin>"
+           "<ymin>{}</ymin><xmax>{}</xmax><ymax>{}</ymax></bndbox></object>")
+
+
+def write_voc_tree(root: str) -> None:
+    """VOC2007 under ``root``: 16 trainval and 16 test images of
+    ``seeded_images`` (600x1000, landscape) as binary PPM, each with 2-8
+    boxes whose classes come from both 0-14 and 15-19, so that the task-1
+    and task-2 datasets keep all 16 images."""
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.datasets.voc import VOC_CLASSES
+
+    base = os.path.join(root, "VOC2007")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    H, W = IMAGE_HW
+    for split, seed in (("trainval", SEED + 30), ("test", SEED + 31)):
+        rng = np.random.RandomState(seed)
+        ids = []
+        for i, img in enumerate(seeded_images(RUNNER_IMAGES, seed)):
+            name = f"{split}_{i:03d}"
+            with open(os.path.join(base, "JPEGImages", name + ".ppm"), "wb") as f:
+                f.write(f"P6\n{W} {H}\n255\n".encode() + img.tobytes())
+            n = rng.randint(2, 9)
+            classes = [rng.randint(0, 15), rng.randint(15, 20)] + list(rng.randint(0, 20, n - 2))
+            objs = []
+            for c in classes:
+                w, h = rng.randint(W // 16, W * 2 // 5), rng.randint(H // 10, H // 2)
+                x, y = rng.randint(1, W - w), rng.randint(1, H - h)
+                objs.append(OBJ_XML.format(VOC_CLASSES[c], x, y, x + w, y + h))
+            with open(os.path.join(base, "Annotations", name + ".xml"), "w") as f:
+                f.write(f"<annotation><filename>{name}.ppm</filename><size><width>{W}</width>"
+                        f"<height>{H}</height><depth>3</depth></size>{''.join(objs)}</annotation>")
+            ids.append(name)
+        with open(os.path.join(base, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(ids))
+
+
+def runner_cfg(path: str, data_root: str, work_dir: str, **entries):
+    """A config file with its train and val datasets read from
+    ``data_root``, one epoch, and ``entries``."""
+    from nsgp_repre_tpu_torch.engine.runner import _leaf_dataset
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    cfg = load_config(path)
+    for loader in ("train_dataloader", "val_dataloader"):
+        # the 15+5 configs' leaf datasets name no data_root (the default
+        # data/VOCdevkit applies)
+        _leaf_dataset(cfg[loader]["dataset"])["data_root"] = data_root
+    cfg["work_dir"] = work_dir
+    cfg["train_cfg"]["max_epochs"] = 1
+    cfg.update(entries)
+    return cfg
+
+
+def expected_launches(runner, steps_have_teacher: bool):
+    """A train() call's launches from the batches each pass ran
+    (runner.timings) and each path's launches per call."""
+    t = runner.timings
+    val_batches = -(-int(t["val_images"]) // runner.val_loader.loader.batch_size)
+    imp = {k: EXPECTED_TRAIN[k] + (EXPECTED_TEACHER[k] if steps_have_teacher else 0)
+           for k in EXPECTED_TRAIN}
+    calls = [(t.get("teacher_batches", 0), EXPECTED_TEACHER), (t["train_steps"], EXPECTED_TRAIN),
+             (val_batches, EXPECTED_B16), (t["importance_batches"], imp),
+             (t["cov_batches"], EXPECTED_COV), (t["roi_batches"], EXPECTED_EXTRACT)]
+    return {k: int(sum(n * per[k] for n, per in calls)) for k in KERNELS}
+
+
+def run_train(torch, runner, label: str, steps_have_teacher: bool, step_ms: float, card: str):
+    """``runner.train()`` with its launches counted from zero; checks the
+    batches each pass ran, the launches, finite logged losses and mAP;
+    logs each stage's seconds, steps/s against the bare step, the
+    loader's share of the loop, val img/s and peak memory."""
+    import math
+
+    from nsgp_repre_tpu_torch.ops import _ext
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    runner.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_ext.LAUNCHES)
+    t = runner.timings
+    n_train = len(runner.train_loader)
+    check(f"{label} batches", (t["train_steps"], t["val_images"], t["importance_batches"],
+                               t["cov_batches"], t["roi_batches"]) == (
+        n_train, len(runner.val_dataset), n_train, n_train, n_train), t)
+    want = expected_launches(runner, steps_have_teacher)
+    check(f"{label} launches", launches == want, f"{launches} != {want}")
+    with open(os.path.join(runner.work_dir, "scalars.json")) as f:
+        logged = [json.loads(line) for line in f if line.strip()]
+    bad = [(r["iter"], k) for r in logged for k, v in r.items()
+           if k not in ("epoch", "iter") and not math.isfinite(v)]
+    check(f"{label} logged losses", logged and not bad, bad or "nothing logged")
+    check(f"{label} mAP", math.isfinite(runner.last_val_map), runner.last_val_map)
+    steps_per_s = t["train_steps"] / t["train_loop_s"]
+    # step 0's logged time ends in a sync (its losses are logged); the
+    # other steps share what is left of the loop once the loader's waits
+    # are taken out
+    first = logged[0]["time"]
+    rest = (t["train_loop_s"] - t["loader_wait_s"] - first) / max(t["train_steps"] - 1, 1)
+    log({"phase": f"runner {label}: train()", "card": card, "wall_s": wall,
+         "timings": t, "launches": launches, "val_map": runner.last_val_map,
+         "logged": logged, "steps_per_s": steps_per_s,
+         "first_step_s": first, "later_steps_mean_s": rest,
+         "bare_step_per_s": 1e3 / step_ms, "loop_over_bare_step": 1e3 / step_ms / steps_per_s,
+         "loader_wait_share": t["loader_wait_s"] / t["train_loop_s"],
+         "val_img_per_s": t["val_images"] / t["val_s"],
+         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "measured": "host clock (time.perf_counter) around each stage, each ending in a sync; "
+                     "the bare step: the train phase's median"})
+    return launches
+
+
+def runner_phase(torch, card: str, task1, step_ms: float):
+    """Task 1 then task 2 of the 15+5 configs through NullSpaceRunner at full
+    width and depth (bf16, 600x1000 images on the 608x1024 canvas, batch
+    16), over a synthetic VOC2007 tree; task 1 starts from ``task1`` (the
+    predict phase's conditioned weights, written as a ``best_*.npz`` with
+    the port's checkpoint writer), so the task-2 teacher detects something.
+    Then tools/torch_test.py on task 2's best checkpoint, and a resumed
+    task-2 runner. Returns the launches of each train()."""
+    import importlib.util
+    import math
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.datasets.prefetch import to_device
+    from nsgp_repre_tpu_torch.engine.runner import NullSpaceRunner
+    from nsgp_repre_tpu_torch.models.detector import FasterRCNN
+    from nsgp_repre_tpu_torch.ops import _ext
+    from nsgp_repre_tpu_torch.utils import checkpoint as ckpt_io
+    from nsgp_repre_tpu_torch.utils.convert import jax_flat_from_state_dict
+
+    tmp = tempfile.mkdtemp(prefix="nsgp_runner_")
+    try:
+        t0 = time.perf_counter()
+        data_root = os.path.join(tmp, "VOCdevkit")
+        write_voc_tree(data_root)
+        init = os.path.join(tmp, "init", "best_mAP_epoch_0.npz")
+        ckpt_io.save_flat(init, ckpt_io.model_flat(task1))
+        log({"phase": "runner: data", "seconds": time.perf_counter() - t0,
+             "images_per_split": RUNNER_IMAGES})
+        wd1, wd2 = os.path.join(tmp, "task_1"), os.path.join(tmp, "task_2")
+        paths = {}
+
+        # ---- task 1 ----
+        r1 = NullSpaceRunner(runner_cfg(CONFIG, data_root, wd1, load_from=init))
+        check("runner task 1", r1.device.type == "cuda" and r1.teacher is None
+              and tuple(r1.model.config.backbone_blocks) == (3, 4, 6, 3)
+              and r1.model.config.compute_dtype == "bfloat16"
+              and len(r1.train_dataset) == len(r1.val_dataset) == RUNNER_IMAGES
+              and len(r1.train_loader) == 3, (len(r1.train_dataset), len(r1.train_loader)))
+        # the host side alone: decoding and packing the epoch's batches (no
+        # prefetch thread), and one batch's pinned copy to the card
+        t0 = time.perf_counter()
+        batches = [b for b, _ in r1.train_loader.loader]
+        decode_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(batches[0], r1.device)
+        torch.cuda.synchronize()
+        log({"phase": "runner: loader alone", "batches": len(batches),
+             "decode_ms_per_batch": decode_s / len(batches) * 1e3,
+             "decode_ms_per_image": decode_s / (len(batches) * TRAIN_BATCH) * 1e3,
+             "copy_ms_per_batch": (time.perf_counter() - t0) * 1e3,
+             "batch_bytes": batches[0].images.numel(),
+             "decode_threads": int(os.environ.get("NSGP_DECODE_THREADS", "16")),
+             "measured": "host clock; the copy: pin_memory and a non-blocking copy, synchronized"})
+        del batches
+        paths["runner_task1_train"] = run_train(torch, r1, "task 1", False, step_ms, card)
+        files = ["epoch_0.npz", "best_mAP_epoch_0.npz", "resume_state.npz", "scalars.json",
+                 "covariance.npz", "rois_etc.npz", "ewc_reg_terms_ewc.npz"]
+        check("task 1 files", set(files) <= set(os.listdir(wd1)), sorted(os.listdir(wd1)))
+        # the checkpoints hold exactly the model's JAX paths, and load back bit for bit
+        params, stats = jax_flat_from_state_dict(r1.model.state_dict())
+        best1 = os.path.join(wd1, "best_mAP_epoch_0.npz")
+        flat1 = ckpt_io.load_pytree_flat(best1)
+        check("checkpoint keys", set(flat1) == {f"params/{k}" for k in params}
+              | {f"batch_stats/{k}" for k in stats}, sorted(flat1)[:5])
+        fresh = FasterRCNN(r1.model.config).to("cuda")
+        ckpt_io.load_checkpoint(fresh, best1, strict=True)
+        own = r1.model.state_dict()
+        check("checkpoint round trip", all(torch.equal(v, own[k]) for k, v in
+                                           fresh.state_dict().items()), "a tensor differs")
+        cov1, rois1 = ckpt_io.load_covariance(wd1), ckpt_io.load_rois_etc(wd1)
+        del r1, fresh, own
+        torch.cuda.empty_cache()
+
+        # ---- task 2: __init__ from task 1's dir ----
+        cfg2 = runner_cfg(CONFIG2, data_root, wd2, previous_dir=wd1)
+        r2 = NullSpaceRunner(cfg2)
+        t2 = dict(r2.timings)
+        teacher_is_best = lambda: all(  # noqa: E731
+            np.array_equal(flat1[f"params/{k}"], v) for k, v in
+            jax_flat_from_state_dict(dict(r2.teacher.named_parameters()))[0].items())
+        log({"phase": "runner task 2: __init__", "init_s": t2["init_s"],
+             "build_transforms_s": t2["build_transforms_s"],
+             "transforms_installed": len(r2.optimizer.transforms),
+             "covariances": len(cov1), "ewc_tensors": len(r2.ewc_terms),
+             "prototypes": len(r2.state.replay_feats),
+             "prototype_labels": r2.state.replay_labels.tolist()})
+        check("task 2 __init__", len(r2.optimizer.transforms) == 50 and len(r2.ewc_terms) == 106
+              and len(r2.state.replay_feats) > 0, (len(r2.optimizer.transforms), len(r2.ewc_terms)))
+        check("task 2 teacher before training", teacher_is_best(), "differs from task 1's best")
+        paths["runner_task2_train"] = run_train(torch, r2, "task 2", True, step_ms, card)
+        check("task 2 teacher after training", teacher_is_best(), "differs from task 1's best")
+        cached = sum(len(e[3]) for e in r2._pseudo_cache.values())
+        log({"phase": "runner task 2: pseudo-label cache", "entries": len(r2._pseudo_cache),
+             "detections": cached, "bytes": r2._pseudo_cache_bytes})
+        check("pseudo-label cache", len(r2._pseudo_cache) == 2 * RUNNER_IMAGES and cached > 0,
+              (len(r2._pseudo_cache), cached))
+        check("task 2 files", set(files + ["mask.pkl"]) <= set(os.listdir(wd2)),
+              sorted(os.listdir(wd2)))
+        cov2, rois2 = ckpt_io.load_covariance(wd2), ckpt_io.load_rois_etc(wd2)
+        check("task 2 covariance keys", set(cov2) >= set(cov1), sorted(set(cov1) - set(cov2)))
+        check("task 2 RoI store", len(rois2[0]) > len(rois1[0]), (len(rois2[0]), len(rois1[0])))
+        runner_map, step2, count2 = r2.last_val_map, r2.state.step, r2.optimizer.count
+        r2.val(dump_to=os.path.join(tmp, "runner_dets.pkl"))  # its detections, for the tool's
+        del r2
+        torch.cuda.empty_cache()
+
+        # ---- tools/torch_test.py on task 2's best checkpoint ----
+        spec = importlib.util.spec_from_file_location("torch_test", os.path.join("tools",
+                                                                                 "torch_test.py"))
+        torch_test = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(torch_test)
+        cfg_path = os.path.join(tmp, "cfg2.py")
+        with open(cfg_path, "w") as f:
+            f.write("".join(f"{k} = {v!r}\n" for k, v in cfg2.items()))
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        test_map = torch_test.main([cfg_path, ckpt_io.find_checkpoint(wd2, "best"),
+                                    "--work-dir", os.path.join(tmp, "test"),
+                                    "--out", os.path.join(tmp, "dets.pkl")])
+        test_s = time.perf_counter() - t0
+        paths["runner_test_val"] = dict(_ext.LAUNCHES)
+        dets = []
+        for name in ("runner_dets.pkl", "dets.pkl"):
+            with open(os.path.join(tmp, name), "rb") as f:
+                dets.append(pickle.load(f))
+        log({"phase": "runner: tools/torch_test.py", "map": test_map, "runner_map": runner_map,
+             "seconds": test_s, "launches": paths["runner_test_val"],
+             "detections": sum(len(d["boxes"]) for d in dets[1])})
+        check("torch_test launches", paths["runner_test_val"] == EXPECTED_B16,
+              f"{paths['runner_test_val']} != one batch-16 predict")
+        # the same weights, kernels and cuDNN algorithms on the same images:
+        # the same detections, bit for bit, and the same mAP
+        same = len(dets[0]) == len(dets[1]) == RUNNER_IMAGES and all(
+            a["img_id"] == b["img_id"] and all(np.array_equal(a[k], b[k]) for k in (
+                "boxes", "scores", "labels")) for a, b in zip(*dets))
+        check("torch_test detections", same, "differ from the runner's validation")
+        check("torch_test mAP", test_map == runner_map, (test_map, runner_map))
+
+        # ---- a resumed task-2 runner ----
+        r2b = NullSpaceRunner(runner_cfg(CONFIG2, data_root, wd2, previous_dir=wd1, resume=True))
+        epoch = r2b._try_resume()
+        flat = ckpt_io.load_pytree_flat(os.path.join(wd2, "resume_state.npz"))
+        now = ckpt_io.model_flat(r2b.model.state_dict())
+        log({"phase": "runner: resumed task 2", "epoch": epoch, "step": r2b.state.step,
+             "count": r2b.optimizer.count, "best_map": r2b._resumed_best,
+             "transforms_installed": len(r2b.optimizer.transforms)})
+        check("resume", (epoch, r2b.state.step, r2b.optimizer.count) == (1, step2, count2)
+              and r2b._resumed_best == runner_map and len(r2b.optimizer.transforms) == 50,
+              (epoch, r2b.state.step, r2b._resumed_best))
+        check("resumed parameters", all(np.array_equal(now[k], flat[k]) for k in now),
+              "differ from resume_state.npz")
+        check("resume mAP finite", math.isfinite(r2b._resumed_best), r2b._resumed_best)
+        del r2b
+        torch.cuda.empty_cache()
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1547,9 +1848,10 @@ def main() -> int:
         results.update(gather_phase(torch, dev))
         launches_b1, state = slice_phase(torch, card)
         results.update(train_kernel_phase(torch, dev))
-        launches_train = train_phase(torch, card, state)
+        launches_train, step_ms = train_phase(torch, card, state)
         chain = task_chain_phase(torch, card, state)
-        by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain}
+        runs = runner_phase(torch, card, state, step_ms)
+        by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain, **runs}
 
         kernels = []
         for name in KERNELS:
@@ -1558,7 +1860,8 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 # each main path counted from zero: one batch-1 predict, one
-                # task-1 train step, and one call of each task-chain path
+                # task-1 train step, one call of each task-chain path, and
+                # each runner train() and the test tool's validation
                 "launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()},
                 "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],

@@ -21,20 +21,9 @@ from ..engine.runner import detector_config_from_cfg
 from ..engine.train import make_eval_step
 from ..models.detector import FasterRCNN
 from ..structures.sample import DetBatch, InstanceArray
-from ..utils.checkpoint import load_pytree_flat
+from ..utils.checkpoint import load_checkpoint
 from ..utils.config import Config, load_config
-from ..utils.convert import state_dict_from_jax
-
-
-def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
-    """The named device, else ``cuda``; raises when CUDA is absent."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU unless device='cpu' is passed"
-        )
-    return torch.device("cuda")
+from ..utils.device import resolve_device
 
 
 class Detector:
@@ -48,17 +37,6 @@ class Detector:
 
     def predict_batch(self, batch: DetBatch) -> InstanceArray:
         return self._eval_step(batch)
-
-
-def _load_state(model: FasterRCNN, sd) -> None:
-    """Load the entries of ``sd`` that name this model's parameters and
-    buffers (a reference checkpoint also holds counters and teacher
-    weights)."""
-    own = model.state_dict()
-    sd = {k: v for k, v in sd.items() if k in own}
-    if not sd:
-        raise KeyError("the checkpoint holds no entry of this model")
-    model.load_state_dict(sd, strict=False)
 
 
 def init_detector(
@@ -78,14 +56,8 @@ def init_detector(
     cfg = load_config(config) if isinstance(config, str) else config
     model = FasterRCNN(detector_config_from_cfg(cfg))
     model.init_weights(torch.Generator().manual_seed(seed))
-    if checkpoint and checkpoint.endswith((".pth", ".pt")):
-        obj = torch.load(checkpoint, map_location="cpu", weights_only=False)
-        _load_state(model, obj.get("state_dict", obj))
-    elif checkpoint:
-        flat = load_pytree_flat(checkpoint)
-        params = {k[7:]: v for k, v in flat.items() if k.startswith("params/")}
-        stats = {k[12:]: v for k, v in flat.items() if k.startswith("batch_stats/")}
-        _load_state(model, state_dict_from_jax(params, stats))
+    if checkpoint:
+        load_checkpoint(model, checkpoint)
     model.to(dev).eval()
     scale = img_scale or tuple(cfg.get("img_scale", (1000, 600)))
     return Detector(model, scale, dev)

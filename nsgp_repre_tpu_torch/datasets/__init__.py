@@ -1,1 +1,1 @@
-"""Image loading and resizing."""
+"""Datasets (VOC, DIOR, COCO), the batch loader and the prefetcher."""

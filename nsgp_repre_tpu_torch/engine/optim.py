@@ -72,7 +72,10 @@ def paramwise_mults(model: torch.nn.Module, paramwise_cfg: dict) -> Mults:
 
 class _NSCL(torch.optim.Optimizer):
     """Named parameters, an lr schedule, per-parameter multipliers and
-    projection transforms; subclasses define the direction."""
+    projection transforms; subclasses define the direction and name their
+    per-parameter buffers in ``SLOTS`` (the ``resume_state.npz`` entries)."""
+
+    SLOTS: Tuple[str, ...] = ()
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  learning_rate: Schedule, mults: Optional[Mults], defaults: dict):
@@ -103,6 +106,8 @@ class _NSCL(torch.optim.Optimizer):
 class SGDNSCL(_NSCL):
     """SGD+momentum with null-space projection of the final update
     (SGD_NSCL.get_update, :387-415)."""
+
+    SLOTS = ("momentum",)  # JAX's NSCLState buffers
 
     def __init__(self, named_params, learning_rate: Schedule, momentum: float = 0.9,
                  weight_decay: float = 1e-4, dampening: float = 0.0, nesterov: bool = False,
@@ -135,6 +140,8 @@ class SGDNSCL(_NSCL):
 class AdamNSCL(_NSCL):
     """Adam (L2 decay folded into the gradient), or AdamW with
     ``decoupled_wd`` (AdamW_NSCL.py:87), with null-space projection."""
+
+    SLOTS = ("mu", "nu")  # JAX's AdamNSCLState buffers
 
     def __init__(self, named_params, learning_rate: Schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,

@@ -8,8 +8,10 @@ out) dense kernels). ``state_dict_from_jax`` maps those onto the port's
 state dict; it is the exact inverse of
 nsgp_repre_tpu/utils/torch_convert.py::convert_detector_state_dict. A
 JAX gradient tree has the parameters' paths, so the same call maps
-gradients name by name. :func:`port_name_from_jax` maps one parameter
-path (the key of the NSGP transforms and covariances) to a port name, and
+gradients name by name. :func:`jax_flat_from_state_dict` is its exact
+inverse, the form the port writes its checkpoints in.
+:func:`port_name_from_jax` maps one parameter path (the key of the NSGP
+transforms and covariances) to a port name, and
 :func:`jax_path_from_port` maps a port name back.
 """
 from __future__ import annotations
@@ -89,24 +91,55 @@ def port_name_from_jax(path: str, n_tasks: int) -> str:
     return f"{_module_name(module, n_tasks)}.{_PARAM_LEAVES[leaf]}"
 
 
+def _jax_module(module: str, n_tasks: int) -> str:
+    for pattern, path in _JAX_MODULES:
+        m = re.fullmatch(pattern, module)
+        if m:
+            return path(m, n_tasks)
+    raise KeyError(f"no JAX module for port module {module!r}")
+
+
 def jax_path_from_port(name: str, n_tasks: int) -> str:
     """Port parameter name (``backbone.layer2.0.conv1.weight``) → JAX
     parameter path (``backbone/layer2_0/conv1/kernel``): the inverse of
     :func:`port_name_from_jax`. A norm's weight is JAX's ``scale``."""
     module, leaf = name.rsplit(".", 1)
-    for pattern, path in _JAX_MODULES:
-        m = re.fullmatch(pattern, module)
-        if m:
-            jax_module = path(m, n_tasks)
-            break
-    else:
-        raise KeyError(f"no JAX module for port name {name!r}")
+    jax_module = _jax_module(module, n_tasks)
     if leaf == "bias":
         return f"{jax_module}/bias"
     if leaf != "weight":
         raise KeyError(f"{name!r} is not a parameter name (leaf {leaf!r})")
     norm = re.search(r"bn\d?$", jax_module) is not None
     return f"{jax_module}/{'scale' if norm else 'kernel'}"
+
+
+def n_tasks_of(state: Dict[str, object]) -> int:
+    """The number of task heads of a port state dict (one ``fc_reg`` each)."""
+    return sum(bool(re.fullmatch(rf"{_BBOX}\.fc_reg\.\d+\.weight", k)) for k in state)
+
+
+def jax_flat_from_state_dict(
+    state: Dict[str, torch.Tensor]
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """The port's state dict (or a dict of tensors keyed by its parameter
+    names, such as optimizer slots) → flat JAX params and batch stats as
+    numpy arrays in JAX layouts (HWIO conv kernels, (in, out) dense
+    kernels, BN ``scale``): the exact inverse of :func:`state_dict_from_jax`."""
+    n_tasks = n_tasks_of(state)
+    params: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    for name, t in state.items():
+        arr = t.detach().cpu().numpy()
+        module, leaf = name.rsplit(".", 1)
+        if leaf in ("running_mean", "running_var"):
+            stats[f"{_jax_module(module, n_tasks)}/{leaf[len('running_'):]}"] = arr
+            continue
+        path = jax_path_from_port(name, n_tasks)
+        if path.endswith("/kernel"):
+            arr = np.ascontiguousarray(
+                np.transpose(arr, (2, 3, 1, 0)) if arr.ndim == 4 else arr.T)
+        params[path] = arr
+    return params, stats
 
 
 def state_dict_from_jax(

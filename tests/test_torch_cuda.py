@@ -628,3 +628,57 @@ def test_small_cov_step_card_matches_cpu(dev):
     for k, r in ref.items():
         scale = r.abs().max().item()
         assert (got[k].cpu() - r).abs().max().item() <= 1e-4 * scale, k
+
+
+def test_small_runner_epoch_on_card(dev, tmp_path):
+    """A SMALL task-1 NullSpaceRunner on the card, on tests/voc_fixture.py's
+    8 images (4 in task 1, batch 2): its first step's loss terms match a
+    CPU runner's on the same batch and the same draws within 1e-3 relative
+    (acc within 2/rcnn_num; chip_smoke.py's train-phase rule), then its
+    epoch, validation and task-end passes launch the kernels the batches
+    account for, and its files load into a fresh model and the readers."""
+    from nsgp_repre_tpu_torch.engine.runner import NullSpaceRunner
+    from nsgp_repre_tpu_torch.models.detector import FasterRCNN
+    from nsgp_repre_tpu_torch.utils import checkpoint as ckpt_io
+    from nsgp_repre_tpu_torch.utils.config import Config
+    from voc_fixture import make_cfg, make_voc
+
+    voc = make_voc(tmp_path / "VOCdevkit")
+    runners = {d: NullSpaceRunner(Config.wrap(make_cfg(voc, str(tmp_path / d), 1)), device=d)
+               for d in ("cpu", "cuda")}
+    cfg = runners["cpu"].model.config
+    n = sum(-(-64 // s) * -(-128 // s) * cfg.num_base_priors for s in cfg.anchor_strides)
+    pg = torch.Generator().manual_seed(0)
+    pri = {"rpn": torch.rand(2, n, generator=pg),
+           "roi": torch.rand(2, runners["cpu"].gt_capacity + cfg.rpn_max_per_img, generator=pg)}
+    pri["roi2"] = torch.rand(pri["roi"].shape, generator=pg)
+    terms, firsts = {}, {}
+    for d, r in runners.items():
+        batch, meta = next(iter(r.train_loader))
+        assert batch.images.device.type == d
+        firsts[d] = (list(meta), batch.images.cpu())
+        _, metrics = r.train_step(r.state, batch, priorities={k: v.to(d) for k, v in pri.items()})
+        terms[d] = {k: float(v) for k, v in metrics.items()}
+    assert firsts["cpu"][0] == firsts["cuda"][0] and torch.equal(firsts["cpu"][1], firsts["cuda"][1])
+    for k, ref in terms["cpu"].items():
+        lim = 2.0 / cfg.rcnn_num if k == "acc" else 1e-3 * max(abs(ref), 1e-3)
+        assert abs(terms["cuda"][k] - ref) <= lim, (k, terms["cuda"][k], ref)
+
+    card = runners["cuda"]
+    _ext.reset_launches()
+    card.train()
+    torch.cuda.synchronize()
+    t = card.timings
+    assert (t["train_steps"], t["val_images"], t["importance_batches"], t["cov_batches"],
+            t["roi_batches"]) == (2, 8, 2, 2, 2)
+    step = {"rpn_head": 5, "nms": 1, "roi_align": 1, "roi_align_bwd": 1, "assign": 1}
+    per = {  # (calls, launches per call): steps and importance, val, cov, RoI store
+        "steps": (4, step), "val": (4, {"nms": 2, "roi_align": 1}),
+        "cov": (2, {"nms": 1, "roi_align": 1, "assign": 1}), "rois": (2, {"nms": 1, "roi_align": 1})}
+    want = {k: sum(c * p.get(k, 0) for c, p in per.values()) for k in _ext.LAUNCHES}
+    assert dict(_ext.LAUNCHES) == want
+    fresh = FasterRCNN(cfg)
+    ckpt_io.load_checkpoint(fresh, ckpt_io.find_checkpoint(card.work_dir, "best"), strict=True)
+    assert all(torch.equal(v, card.model.state_dict()[k].cpu()) for k, v in fresh.state_dict().items())
+    assert ckpt_io.load_covariance(card.work_dir) and len(ckpt_io.load_rois_etc(card.work_dir)[0]) == 10
+    assert len(ckpt_io.load_ewc_terms(card.work_dir, 2)) == 34

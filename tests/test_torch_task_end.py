@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from nsgp_repre_tpu.engine import ewc as jax_ewc
 from nsgp_repre_tpu.engine import nsgp as jax_nsgp
@@ -57,12 +58,14 @@ IGNORE = ["rpn", "roi_head"]  # the configs' ignore_keys
 
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
-    """Two torch threads for this module: the suite runs six workers on a
-    few cores, and these R-50-width CPU passes would otherwise take them
-    all."""
+    """Two torch threads and two BLAS threads for this module: the suite
+    runs six workers on a few cores, and these R-50-width CPU passes would
+    otherwise take them all (numpy's float64 eigh on an oversubscribed
+    BLAS ran ~18x slower here)."""
     before = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
+    with threadpool_limits(2):
+        yield
     torch.set_num_threads(before)
 
 
