@@ -63,7 +63,31 @@ Phases, each of which raises on a failed check (exit code 1):
    against the runner's, and a resumed task-2 runner; each stage's
    seconds, the loop's steps/s against the bare step, the loader's share
    of the loop, the decode and copy time of a batch, val img/s and peak
-   memory.
+   memory; then, on the host, the VOC and COCO evaluators' seconds with
+   the native matcher (evaluation/native.py) against the same evaluators
+   with the numpy reference matchers swapped in, on seeded detections
+   for VOC2007 test's 4,952 images (20 classes) and 100 COCO images
+   (80 classes), the results equal;
+9. model zoo (the two-stage family): the kernels at the zoo's new shapes
+   against their plain versions, two calls bit for bit, with times and
+   bounds (RoIAlign forward and backward at the mask branch's 14x14 on
+   2 x 512 RoIs of an 800x1344 canvas, bf16 and f32; NMS over the
+   cascade's 1,000 x 80 = 80,000 candidates on each of 2 images; the
+   assignment over the canvas's 268,569 anchors); then Cascade R-CNN,
+   Mask R-CNN and Cascade Mask R-CNN built by the port's
+   ``build_detector`` from cl_faster_rcnn_cfgs/_base_/models/ at full
+   width (R-50-FPN, 80 classes, the configs' heads), seeded and
+   conditioned weights, bf16, batch 2 of seeded 800x1333 images padded
+   to 800x1344 with seeded boxes (and binary gt crops for the mask
+   families): 4 train steps (loss, backward, SGD; launches counted,
+   finite terms), predict at batch 1 and 2 (launches counted), the f32
+   batch-1 loss terms card against CPU within 1e-3 on the card's
+   proposals, f32 detections matched >= 95% and a mask family's
+   probabilities on the card's boxes within 1e-3 of the CPU's; once
+   each: RPN and Fast R-CNN predict, the 15+5 config's predict with
+   soft-NMS and its proposals with the matrix NMS (the kernel's keep
+   lists), and DetInferencer on demo/demo.jpg with its drawing; step,
+   predict times, peak memory and launches per path.
 
 The last lines are the card line, one JSON object listing the kernels,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -594,12 +618,12 @@ def kernel_phase(torch, dev):
 # slice phase
 # ---------------------------------------------------------------------------
 
-def seeded_images(n: int, seed: int):
-    """Seeded uint8 RGB images of IMAGE_HW: coarse random blocks plus noise."""
+def seeded_images(n: int, seed: int, hw=IMAGE_HW):
+    """Seeded uint8 RGB images of ``hw``: coarse random blocks plus noise."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    H, W = IMAGE_HW
+    H, W = hw
     out = []
     for _ in range(n):
         coarse = rng.randint(0, 255, (H // 16 + 1, W // 16 + 1, 3)).astype(np.float32)
@@ -636,8 +660,9 @@ def condition_weights(torch, model, images_batch):
         for h in hooks:
             h.remove()
         model.rpn_head.rpn_cls.weight.mul_(20.0)
-        for fc in model.bbox_head.fc_cls:
-            fc.weight.mul_(10.0)
+        for head in model._bbox_heads():
+            for fc in head.fc_cls:
+                fc.weight.mul_(10.0)
 
 
 def match_fraction(card: dict, cpu: dict, iou_min: float = 0.99) -> float:
@@ -1641,6 +1666,73 @@ def run_train(torch, runner, label: str, steps_have_teacher: bool, step_ms: floa
     return launches
 
 
+def eval_inputs(seed: int, n_img: int, classes: int, gts: int, dets_per_img: int,
+                hw=(500, 375)):
+    """Seeded detections and annotations for the evaluators: 1 to 2*gts-1
+    gts per image, ``dets_per_img`` detections jittered around them (half
+    with the gt's class), a tenth of the gts difficult, 3% crowd."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    dets, anns = [], []
+    for _ in range(n_img):
+        g = rng.randint(1, 2 * gts)
+        xy = rng.uniform(0, hw[0] * 0.8, (g, 2))
+        gt = np.concatenate([xy, xy + rng.uniform(8, hw[0] * 0.4, (g, 2))], 1).astype(np.float32)
+        lab = rng.randint(0, classes, g)
+        anns.append(dict(boxes=gt, labels=lab, difficult=(rng.rand(g) > 0.9).astype(np.int32),
+                         iscrowd=(rng.rand(g) > 0.97).astype(np.int32)))
+        src = rng.randint(0, g, dets_per_img)
+        boxes = (gt[src] + rng.randn(dets_per_img, 4).astype(np.float32) * 12).astype(np.float32)
+        cls = np.where(rng.rand(dets_per_img) < 0.5, lab[src],
+                       rng.randint(0, classes, dets_per_img))
+        scores = rng.rand(dets_per_img).astype(np.float32)
+        dets.append({int(c): (boxes[cls == c], scores[cls == c]) for c in np.unique(cls)})
+    return dets, anns
+
+
+def eval_phase(card: str) -> None:
+    """The evaluators' host seconds, native matching against the numpy
+    reference matchers swapped into the same evaluators, on seeded
+    detections (100 per image): VOC2007 test's 4,952 images over 20
+    classes, and 100 images over COCO's 80; the results must be equal.
+    Validation runs these evaluators after predict (engine/runner.py)."""
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.evaluation import coco_map, native, voc_map
+
+    native.lib()  # built before any timing
+    out = {}
+    for name, mod, attr, ref, evaluate, n_img, classes, gts in (
+            ("voc", voc_map, "voc_tpfp", voc_map._tpfp_numpy, voc_map.eval_voc_map, 4952, 20, 3),
+            ("coco", coco_map, "coco_match", coco_map._match_numpy, coco_map.eval_coco_map, 100,
+             80, 7)):
+        dets, anns = eval_inputs(SEED, n_img, classes, gts, 100)
+        fast = getattr(mod, attr)
+        secs, res = {}, {}
+        try:
+            for label, fn in (("native", fast), ("numpy", ref), ("native_again", fast)):
+                setattr(mod, attr, fn)
+                t0 = time.perf_counter()
+                res[label] = evaluate(dets, anns, classes)
+                secs[label] = time.perf_counter() - t0
+        finally:
+            setattr(mod, attr, fast)
+        if name == "voc":
+            same = res["native"] == res["numpy"]
+        else:
+            same = all(np.array_equal(res["native"][k], res["numpy"][k], equal_nan=True)
+                       for k in res["native"])
+        check(f"{name} mAP native = numpy", same, "the matchers disagree")
+        m = res["native"][0] if name == "voc" else res["native"]["mAP"]
+        out[name] = {"images": n_img, "classes": classes, "mAP": m, "seconds": secs,
+                     "native_img_per_s": n_img / min(secs["native"], secs["native_again"]),
+                     "numpy_img_per_s": n_img / secs["numpy"]}
+    log({"phase": "evaluators: native vs numpy matching", "card": card, **out,
+         "measured": "host clock (time.perf_counter) around one eval_voc_map / eval_coco_map "
+                     "call each, on the machine that holds the card"})
+
+
 def runner_phase(torch, card: str, task1, step_ms: float):
     """Task 1 then task 2 of the 15+5 configs through NullSpaceRunner at full
     width and depth (bf16, 600x1000 images on the 608x1024 canvas, batch
@@ -1805,6 +1897,522 @@ def runner_phase(torch, card: str, task1, step_ms: float):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# model-zoo phase: the two-stage families at full width on the COCO scale
+# ---------------------------------------------------------------------------
+
+MODELS = "cl_faster_rcnn_cfgs/_base_/models"
+FAMILIES = (("CascadeRCNN", "cascade-rcnn_r50_fpn.py"), ("MaskRCNN", "mask-rcnn_r50_fpn.py"),
+            ("CascadeMaskRCNN", "cascade-mask-rcnn_r50_fpn.py"))
+COCO_HW = (800, 1333)  # keep-ratio resize to (1333, 800) is the identity
+COCO_CANVAS = (800, 1344)  # padded to a multiple of 32
+COCO_BATCH = 2
+COCO_GT = 16
+MASK_OUT = 14  # the mask branch's RoIAlign output (mask-rcnn_r50_fpn.py:33)
+DEMO = "demo/demo.jpg"
+
+
+def zoo_launches(roi_align=0, roi_align_bwd=0, conv3x3=0, rpn_head=0, nms=0, assign=0):
+    return {"conv3x3": conv3x3, "rpn_head": rpn_head, "nms": nms, "roi_align": roi_align,
+            "roi_align_bwd": roi_align_bwd, "assign": assign, "gather": 0}
+
+
+# one call of each path: the train step (sparse RPN loss: the forward-only
+# RPN head on P2-P6, the assignment, proposal NMS, one RoIAlign forward and
+# backward per cascade stage and one for the mask branch); predict (no
+# fused FPN convs, as the families' predict extracts features without
+# them; the fused RPN head at batch 1 only; proposal and multiclass NMS;
+# one RoIAlign per stage and one for the masks)
+ZOO_ROIS = {"CascadeRCNN": 3, "MaskRCNN": 2, "CascadeMaskRCNN": 4}
+
+
+def zoo_expected(kind, path):
+    r = ZOO_ROIS[kind]
+    if path == "train":
+        return zoo_launches(rpn_head=5, assign=1, nms=1, roi_align=r, roi_align_bwd=r)
+    return zoo_launches(rpn_head=5 if path == "predict1" else 0, nms=2, roi_align=r)
+
+
+def coco_batch(torch, n: int, seed: int, masks: bool):
+    """``n`` seeded 800x1333 images on the 800x1344 canvas with 5 and 8
+    seeded gt boxes of the 80 classes (COCO_GT slots) and, with ``masks``,
+    seeded binary box-normalized gt crops (56x56), on the CPU."""
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
+
+    b = demo_det_batch(n, *COCO_HW, num_instances=(5, 8), num_classes=80, gt_capacity=COCO_GT,
+                       seed=seed)
+    canvas = np.zeros((n,) + COCO_CANVAS + (3,), np.uint8)
+    canvas[:, :COCO_HW[0], :COCO_HW[1]] = np.stack(seeded_images(n, seed, COCO_HW))
+    gt = b.gt
+    if masks:
+        g = torch.Generator().manual_seed(seed + 1)
+        coarse = torch.rand((n * COCO_GT, 1, 7, 7), generator=g)
+        crops = torch.nn.functional.interpolate(coarse, size=(56, 56), mode="bilinear",
+                                                align_corners=False)
+        gt = gt.replace(masks=(crops > 0.5).float().reshape(n, COCO_GT, 56, 56))
+    return b.replace(images=torch.from_numpy(canvas), gt=gt)
+
+
+def first_images(batch, n: int = 1):
+    """The first ``n`` images of a batch, every field cut alike."""
+    import dataclasses
+
+    gt = batch.gt
+    return batch.replace(
+        images=batch.images[:n], img_shape=batch.img_shape[:n], ori_shape=batch.ori_shape[:n],
+        scale_factor=batch.scale_factor[:n],
+        gt=dataclasses.replace(gt, **{f.name: getattr(gt, f.name)[:n]
+                                      for f in dataclasses.fields(gt)
+                                      if getattr(gt, f.name) is not None}))
+
+
+def det_dict(dets, i: int) -> dict:
+    v = dets.valid[i].cpu()
+    return {"boxes": dets.boxes[i].cpu()[v].numpy(), "labels": dets.labels[i].cpu()[v].numpy(),
+            "scores": dets.scores[i].cpu()[v].numpy()}
+
+
+def check_zoo_dets(torch, label, dets, batch_size, with_masks):
+    """Padded detections: finite, scores in (0.05, 1], boxes inside the
+    image, some detections; masks (B, 100, 28, 28) probabilities."""
+    check(label, dets.boxes.shape == (batch_size, 100, 4), tuple(dets.boxes.shape))
+    v = dets.valid
+    b, s = dets.boxes[v], dets.scores[v]
+    check(label, bool(torch.isfinite(b).all() and torch.isfinite(s).all()), "non-finite output")
+    check(label, bool(((s > 0.05) & (s <= 1.0)).all()), "score outside (0.05, 1]")
+    H, W = COCO_HW
+    check(label, bool((b[:, 0::2] >= 0).all() and (b[:, 0::2] <= W).all()
+                      and (b[:, 1::2] >= 0).all() and (b[:, 1::2] <= H).all()), "box off the image")
+    check(label, int(v.sum()) > 0, "no detections")
+    if with_masks:
+        m = dets.masks
+        check(label, tuple(m.shape) == (batch_size, 100, 28, 28), tuple(m.shape))
+        check(label, bool(torch.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()),
+              "mask probabilities outside [0, 1]")
+    return int(v.sum())
+
+
+def host_ms(torch, fn, n: int):
+    """Host-clock times of ``n`` calls of ``fn``, each ended by a synchronize."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def family_phase(torch, dev, card: str, kind: str, config_file: str, batch, paths):
+    """One family of the zoo at full width (R-50-FPN, 80 classes, the
+    config's heads, seeded and conditioned weights): a bf16 train step at
+    batch 2 (4 steps, one SGD update each at the schedule's first lr),
+    bf16 predict at batch 1 and 2, the f32 batch-1 loss terms card
+    against CPU (the card's proposals on both) and the f32 detections
+    card against CPU (>= 95% matched; a mask family's probabilities on the
+    card's detections against the CPU's mask head on the same boxes)."""
+    import gc
+    import math
+
+    from nsgp_repre_tpu_torch.engine.train import (make_eval_step, normalize_images, total_loss,
+                                                   trainable_mask)
+    from nsgp_repre_tpu_torch.models.zoo import build_detector
+    from nsgp_repre_tpu_torch.testing import draw_priorities, split_losses
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    model_cfg = load_config(f"{MODELS}/{config_file}")["model"]
+    masks = "Mask" in kind
+    # earlier phases' tensors held only by reference cycles would count
+    # in this family's peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, cfg = build_detector(model_cfg, compute_dtype="bfloat16", device=dev,
+                                seed=SEED)
+    check(kind, type(model).__name__ == kind and cfg.num_classes == 80
+          and tuple(cfg.backbone_blocks) == (3, 4, 6, 3), f"{type(model).__name__} {cfg}")
+    condition_weights(torch, model, batch.images[:1].to(dev))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    build_s = time.perf_counter() - t0
+
+    # ---- bf16 train step, batch 2 ----
+    mask = trainable_mask(model, cfg)
+    for n, p in model.named_parameters():
+        p.requires_grad_(mask[n])
+    # the schedule's first lr (0.02 x the warm-up's 0.001), momentum, decay
+    opt = torch.optim.SGD([p for p in model.parameters() if p.requires_grad], lr=2e-5,
+                          momentum=0.9, weight_decay=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bc = batch.to(dev)
+    bn = bc.replace(images=normalize_images(bc.images))
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        losses = model.loss(bn, generator=gen)
+        total_loss(losses).backward()
+        opt.step()
+        return {k: float(v.detach()) for k, v in losses.items()}
+
+    step()  # warm-up: allocator, cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, launches = [], None, None
+    for i in range(3):
+        t1 = time.perf_counter()
+        losses, launches = run_path(torch, f"{kind} train step {i}", zoo_expected(kind, "train"),
+                                    step)
+        times.append((time.perf_counter() - t1) * 1e3)
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        check(f"{kind} train step {i}", not bad, f"non-finite {bad}")
+    check(f"{kind} train", ("loss_mask" in losses) == masks and
+          (("s2.loss_cls" in losses) == kind.startswith("Cascade")), sorted(losses))
+    train_peak = torch.cuda.max_memory_allocated()
+    paths[f"{kind}_train_step"] = launches
+    profile_call(torch, step, f"{kind} train bf16 batch 2 (one step)")
+    del opt
+    model.load_state_dict(state)
+    model.eval()
+    for p in model.parameters():
+        p.grad = None
+
+    # ---- bf16 predict, batch 1 and 2 ----
+    eval_step = make_eval_step(model)
+    pred = {}
+    for B in (1, COCO_BATCH):
+        bb = first_images(bc, B)
+        eval_step(bb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dets, launches = run_path(torch, f"{kind} predict batch {B}",
+                                  zoo_expected(kind, f"predict{B}"), lambda: eval_step(bb))
+        paths[f"{kind}_predict_batch{B}"] = launches
+        n_dets = check_zoo_dets(torch, f"{kind} bf16 predict batch {B}", dets, B, masks)
+        ms = host_ms(torch, lambda: eval_step(bb), 3)
+        pred[B] = {"detections": n_dets, "ms_median": statistics.median(ms), "ms_all": ms,
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        profile_call(torch, lambda: eval_step(bb), f"{kind} predict bf16 batch {B}")
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+    # ---- f32 batch 1: loss terms and detections, card against CPU ----
+    m32, _ = build_detector(model_cfg, device=dev, seed=SEED)
+    m32.load_state_dict(state)
+    c32, _ = build_detector(model_cfg, device="cpu", seed=SEED)
+    c32.load_state_dict(state)
+    b1 = first_images(batch)
+    n_anchors = sum(-(-COCO_CANVAS[0] // s) * -(-COCO_CANVAS[1] // s) * A for s in STRIDES)
+    pri = draw_priorities(c32, 1, n_anchors, COCO_GT, torch.Generator().manual_seed(SEED + 4))
+    t1 = time.perf_counter()
+    got_l, props = split_losses(m32, b1, pri)
+    ref_l, _ = split_losses(c32, b1, pri, proposals=props)
+    loss_rel = {k: abs(got_l[k] - ref_l[k])
+                / (1.0 if k.endswith("acc") else max(abs(ref_l[k]), 1e-3)) for k in ref_l}
+    for k, v in loss_rel.items():
+        # acc as an absolute difference: one RoI of 512 that flips moves it by 1/512
+        lim = 2.0 / cfg.rcnn_num if k.endswith("acc") else 1e-3
+        check(f"{kind} f32 {k}", v <= lim, f"card {got_l[k]} cpu {ref_l[k]}")
+    b1c = b1.to(dev)
+    with torch.no_grad():
+        card_dets = m32.predict(b1c.replace(images=normalize_images(b1c.images)))
+        b1n = b1.replace(images=normalize_images(b1.images))
+        feats = c32.extract_feat(b1n.images)
+        cpu_dets = c32._predict_feats(feats, b1n, True)
+    frac = match_fraction(det_dict(card_dets, 0), det_dict(cpu_dets, 0))
+    # 95%: f32 sums in other orders can reorder near-tied scores at the
+    # top-k cut and in NMS, which swaps a few detections
+    check(f"{kind} f32 detections card vs cpu", frac >= 0.95, f"matched {frac:.3f} < 0.95")
+    mask_err = None
+    if masks:
+        # the CPU's mask head on the card's detections: the same boxes, so
+        # the probabilities compare element by element (f32 convs summed
+        # in other orders; tolerance 1e-3)
+        with torch.no_grad():
+            on_card_boxes = c32._predict_masks(feats, card_dets.to("cpu"), b1n, True)
+        v = card_dets.valid[0].cpu()
+        mask_err = (card_dets.masks[0].cpu()[v] - on_card_boxes.masks[0][v]).abs().max().item()
+        check(f"{kind} f32 masks card vs cpu", mask_err <= 1e-3, f"max_abs_err {mask_err}")
+    cpu_s = time.perf_counter() - t1
+    del m32, c32, feats
+    torch.cuda.empty_cache()
+    log({"phase": f"zoo {kind}", "card": card, "config": f"{MODELS}/{config_file}",
+         "build_s": build_s, "canvas": list(COCO_CANVAS), "image": list(COCO_HW),
+         "train_bf16_batch2": {"step_ms_median": statistics.median(times), "step_ms_all": times,
+                               "max_memory_allocated_bytes": train_peak,
+                               "allocated_at_start_bytes": allocated_at_start,
+                               "losses_last": losses,
+                               "launches": paths[f"{kind}_train_step"],
+                               "measured": "host clock around loss, backward and SGD, ending in "
+                                           "torch.cuda.synchronize"},
+         "predict_bf16": {f"batch{B}": dict(r, launches=paths[f"{kind}_predict_batch{B}"])
+                          for B, r in pred.items()},
+         "f32_batch1_card_vs_cpu": {"losses_card": got_l, "losses_cpu": ref_l,
+                                    "loss_rel_err": loss_rel, "detections_matched": frac,
+                                    "card_detections": int(card_dets.valid.sum()),
+                                    "cpu_detections": int(cpu_dets.valid.sum()),
+                                    "mask_prob_max_abs_err": mask_err, "cpu_seconds": cpu_s}})
+
+
+def zoo_kernel_phase(torch, dev):
+    """The kernels at the zoo's new shapes against their plain versions,
+    two calls bit for bit, with times and bounds: the RoIAlign forward and
+    backward at the mask branch's 14x14 on 2 x 512 sampler-like RoIs of
+    the 800x1344 canvas (bf16 and f32: the f32 backward's g slices need
+    50 KB of shared memory), NMS at the cascade's 1,000 x 80 = 80,000
+    candidates on each of 2 images, and the anchor assignment over the
+    canvas's 268,569 anchors at 16 gt slots."""
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.ops import _ext, assign_cuda, nms, nms_cuda, roi_align, roi_align_cuda
+    from nsgp_repre_tpu_torch.ops.anchors import AnchorGenerator
+
+    g = torch.Generator().manual_seed(SEED + 20)
+    B = COCO_BATCH
+    shapes = [(-(-COCO_CANVAS[0] // s), -(-COCO_CANVAS[1] // s)) for s in STRIDES]
+    level_hw = shapes[:4]
+    results = {}
+
+    # ---- RoIAlign forward and backward at 14x14 ----
+    rois, bidx = sampler_like_boxes(torch, g, B, 512, canvas=COCO_CANVAS)
+    rois, bidx = rois.to(dev), bidx.to(dev)
+    R, O = rois.shape[0], MASK_OUT
+    lin, wts = roi_align.sample_taps(level_hw, B, rois, bidx, STRIDES[:4], output_size=O)
+    rows_touched = int(torch.unique(lin[wts != 0]).numel())
+    del lin, wts
+    level_rows = B * sum(h * w for h, w in level_hw)
+    feats32 = [torch.randn(B, h, w, C, generator=g).to(dev) for h, w in level_hw]
+    g32 = torch.randn(R, O, O, C, generator=g).to(dev)
+    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        size = 2 if dt == torch.bfloat16 else 4
+        feats, gout = [f.to(dt) for f in feats32], g32.to(dt)
+        fwd = lambda: roi_align_cuda.multilevel_roi_align(  # noqa: E731
+            feats, rois, bidx, strides=STRIDES[:4], output_size=O)
+        fwd_plain = lambda: roi_align.multilevel_roi_align(  # noqa: E731
+            feats, rois, bidx, strides=STRIDES[:4], output_size=O)
+        bwd = lambda: roi_align_cuda.multilevel_roi_align_backward(  # noqa: E731
+            gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4], output_size=O)
+        bwd_plain = lambda: roi_align.multilevel_roi_align_backward(  # noqa: E731
+            gout, rois, bidx, level_hw, B, dt, strides=STRIDES[:4], output_size=O)
+        for name, run, plain in (("roi_align", fwd, fwd_plain), ("roi_align_bwd", bwd, bwd_plain)):
+            got, again, ref = run(), run(), plain()
+            torch.cuda.synchronize()
+            if name == "roi_align":
+                got, again, ref = [got], [again], [ref.to(dt)]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+            scale = max(y.float().abs().max().item() for y in ref)
+            del got, again, ref
+            if dt == torch.float32:
+                tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
+            else:
+                tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
+            label = f"{name} {dt_name} {O}x{O}"
+            check(label, err <= tol, f"max_abs_err {err} > {tol_desc}")
+            check(label, same, "two calls of the kernel differ")
+            # outputs (or g) once, RoIs and indices, the map rows it reads
+            # (forward: the distinct rows its taps touch) or writes (backward:
+            # every level gradient row)
+            flops = R * O * O * 4 * 9 * C + R * O * O * C
+            nbytes = R * O * O * C * size + R * 20 + (
+                rows_touched if name == "roi_align" else level_rows) * C * size
+            bms, bby = bound(nbytes, flops, dt_name)
+            entry = dict(kernel=name, dtype=dt_name, case=f"mask branch {O}x{O}", R=R,
+                         max_abs_err=err, tol=tol_desc, bit_identical_reruns=same,
+                         kernel_ms=time_ms(torch, run, 10), device_ms=device_ms(torch, run, 5),
+                         plain_ms=time_ms(torch, plain, 2, warmup=1), library_ms=None,
+                         bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+            log(entry)
+            results[(name, dt_name, "mask14")] = entry
+        del feats, gout
+    del feats32, g32
+    torch.cuda.empty_cache()
+
+    # ---- NMS at 80,000 candidates per image ----
+    Rn, Cn = 1000, 80
+    base = proposal_like_boxes(torch, g, B * Rn, COCO_CANVAS).reshape(B, Rn, 1, 4)
+    mboxes = (base + torch.randn(B, Rn, Cn, 4, generator=g) * 4).reshape(B, -1, 4).to(dev)
+    mscores = torch.softmax(torch.randn(B, Rn, Cn + 1, generator=g) * 3, -1)[..., :Cn]
+    s = mscores.reshape(B, -1).to(torch.bfloat16).float().to(dev)
+    labels = torch.arange(Cn, dtype=torch.int32).repeat(B, Rn).to(dev)
+    valid = s > 0.05
+    shifted = nms.offset_boxes(mboxes, labels, valid)
+    entry = nms_case(torch, nms, nms_cuda, shifted, s, valid, 0.5, 100,
+                     "cascade predict multiclass, 2 x 80,000")
+    entry["plain_ms"] = time_ms(torch, lambda: nms.nms(shifted, s, valid, 0.5, 100), 2, warmup=1)
+    results[("nms", "float32", "zoo80000")] = entry
+    del mboxes, s, labels, valid, shifted
+
+    # ---- anchor assignment over the 800x1344 canvas ----
+    anchors = torch.from_numpy(np.concatenate(AnchorGenerator().grid_anchors(shapes))).to(dev)
+    N = anchors.shape[0]
+    check("coco anchors", N == 268_569, N)
+    G = COCO_GT
+    n_valid = torch.tensor([5, 8])
+    gt_valid = (torch.arange(G)[None] < n_valid[:, None]).to(dev)
+    prior_valid = (torch.rand(B, N, generator=g) > 0.02).to(dev)
+    gt = proposal_like_boxes(torch, g, B * G, COCO_CANVAS).reshape(B, G, 4).to(dev)
+    gt[:, 1] = gt[:, 0]  # a duplicated gt: argmax and claim ties
+    gt[:, 2] = anchors[N // 2:N // 2 + B]  # a gt equal to an anchor (IoU exactly 1)
+    args = (anchors, gt, gt_valid, prior_valid, 0.7, 0.3, 0.3)
+    run = lambda: assign_cuda.rpn_assign_targets(*args)  # noqa: E731
+    got = run()
+    again = run()
+    ref = assign_cuda.rpn_assign_targets_plain(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+    tgt_err = (got[2] - ref[2]).abs().max().item()
+    check("assign 268,569 anchors", same, "assigned or max_overlaps differ from the plain version")
+    check("assign 268,569 anchors", rerun, "two calls of the kernel differ")
+    check("assign 268,569 anchors targets", tgt_err <= 1e-5 * max(1.0, ref[2].abs().max().item()),
+          f"tgt max_abs_err {tgt_err}")
+    V = int(n_valid.sum())
+    flops = V * N * (2 * IOU_FLOPS + 3) + B * N * 16
+    nbytes = N * 16 + B * G * 17 + B * N * 1 + B * N * (4 + 4 + 16)
+    bms, bby = bound(nbytes, flops, "float32")
+    entry = dict(kernel="assign", dtype="float32", case="800x1344 canvas", anchors=N, batch=B,
+                 gt_slots=G, valid_gts=V, positives=int((got[0] >= 0).sum()),
+                 identical_assigned_and_max_overlaps=same, bit_identical_reruns=rerun,
+                 max_abs_err=tgt_err, kernel_ms=time_ms(torch, run, 20),
+                 device_ms=device_ms(torch, run, 10),
+                 plain_ms=time_ms(torch, lambda: assign_cuda.rpn_assign_targets_plain(*args), 3),
+                 library_ms=None, bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+    log(entry)
+    results[("assign", "float32", "coco")] = entry
+    del anchors, got, again, ref
+    torch.cuda.empty_cache()
+    _ext.reset_launches()  # comparison launches are not main-path launches
+    return results
+
+
+def zoo_once_phase(torch, dev, card: str, batch, state, paths):
+    """Once each: RPN and Fast R-CNN predict at full width (bf16, batch 1,
+    Fast R-CNN on the RPN's proposals); the 15+5 config's predict with
+    nms_type='soft_nms', and its proposals with rpn_nms_impl='matrix'
+    (the NMS kernel with the batch-wide group offset) against the default
+    path's (the same keep lists); DetInferencer on
+    demo/demo.jpg with the predict phase's weights, its drawing written
+    and its detections inference_detector's."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.apis.inference import (DetInferencer, _pack_images,
+                                                     inference_detector, init_detector)
+    from nsgp_repre_tpu_torch.engine.train import normalize_images
+    from nsgp_repre_tpu_torch.models.zoo import build_detector
+    from nsgp_repre_tpu_torch.utils.checkpoint import model_flat, save_flat
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    b1 = first_images(batch).to(dev)
+    b1n = b1.replace(images=normalize_images(b1.images))
+    out = {}
+
+    # ---- RPN, then Fast R-CNN on its proposals ----
+    rpn, _ = build_detector(load_config(f"{MODELS}/rpn_r50_fpn.py")["model"],
+                            compute_dtype="bfloat16", device=dev, seed=SEED)
+    condition_weights(torch, rpn, b1.images)
+    rpn.predict(b1n)
+    props, launches = run_path(torch, "RPN predict", zoo_launches(rpn_head=5, nms=1),
+                               lambda: rpn.predict(b1n))
+    paths["rpn_predict_batch1"] = launches
+    check("RPN proposals", int(props.valid.sum()) > 0 and bool(torch.isfinite(props.boxes).all())
+          and not props.labels.any(), int(props.valid.sum()))
+    out["rpn"] = {"proposals": int(props.valid.sum()),
+                  "ms": host_ms(torch, lambda: rpn.predict(b1n), 3)}
+    del rpn
+    fast, _ = build_detector(load_config(f"{MODELS}/fast-rcnn_r50_fpn.py")["model"],
+                             compute_dtype="bfloat16", device=dev, seed=SEED)
+    condition_weights(torch, fast, b1.images)
+    fast.predict(b1n, props)
+    dets, launches = run_path(torch, "Fast R-CNN predict", zoo_launches(nms=1, roi_align=1),
+                              lambda: fast.predict(b1n, props))
+    paths["fast_rcnn_predict_batch1"] = launches
+    out["fast_rcnn"] = {"detections": check_zoo_dets(torch, "Fast R-CNN predict", dets, 1, False),
+                        "ms": host_ms(torch, lambda: fast.predict(b1n, props), 3)}
+    del fast
+    torch.cuda.empty_cache()
+
+    # ---- the 15+5 config: soft-NMS predict, matrix-NMS proposals ----
+    det = init_detector(load_config(CONFIG), device=dev, seed=SEED)
+    det.model.load_state_dict(state)
+    hard_cfg = det.model.config
+    img = seeded_images(1, SEED)[0]
+    pb = _pack_images(det, [img])
+    pbn = pb.replace(images=normalize_images(pb.images))
+    det.model.config = dataclasses.replace(hard_cfg, nms_type="soft_nms")
+    inference_detector(det, img)
+    soft, launches = run_path(torch, "soft-NMS predict", dict(EXPECTED_B1, nms=1),
+                              lambda: inference_detector(det, img))
+    paths["soft_nms_predict_batch1"] = launches
+    check_detections("soft-NMS predict", [soft], 1)
+    soft_ms = host_ms(torch, lambda: inference_detector(det, img), 3)
+    with torch.no_grad():
+        feats = det.model.extract_feat(pbn.images, inference=True)
+        det.model.config = hard_cfg
+        _, kernel_props = det.model.rpn_loss_and_proposals(feats, pbn.gt, pbn.img_shape,
+                                                           with_loss=False)
+        det.model.config = dataclasses.replace(hard_cfg, rpn_nms_impl="matrix")
+        (_, matrix_props), launches = run_path(
+            torch, "matrix-NMS proposals", zoo_launches(rpn_head=5, nms=1),
+            lambda: det.model.rpn_loss_and_proposals(feats, pbn.gt, pbn.img_shape, with_loss=False))
+        paths["matrix_nms_proposals_batch1"] = launches
+        matrix_ms = host_ms(torch, lambda: det.model.rpn_loss_and_proposals(
+            feats, pbn.gt, pbn.img_shape, with_loss=False), 3)
+    det.model.config = hard_cfg
+    same = all(torch.equal(a, b) for a, b in (
+        (kernel_props.valid, matrix_props.valid), (kernel_props.boxes, matrix_props.boxes),
+        (kernel_props.scores, matrix_props.scores)))
+    check("matrix-NMS proposals", same, "keep lists differ from the NMS kernel's")
+    out["soft_nms"] = {"detections": len(soft["boxes"]), "ms": soft_ms}
+    out["matrix_nms"] = {"proposals": int(matrix_props.valid.sum()), "same_as_kernel": same,
+                         "proposals_ms": matrix_ms}
+    del det, feats
+
+    # ---- DetInferencer on demo/demo.jpg, the predict phase's weights ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inferencer_")
+    try:
+        weights = os.path.join(tmp, "weights.npz")
+        save_flat(weights, model_flat(state))
+        inf = DetInferencer(load_config(CONFIG), weights=weights, pred_score_thr=0.3,
+                            device=dev)
+        inf(DEMO)
+        res, launches = run_path(torch, "DetInferencer", EXPECTED_B1,
+                                 lambda: inf(DEMO, out_dir=os.path.join(tmp, "vis")))
+        paths["det_inferencer_batch1"] = launches
+        direct = inference_detector(inf.detector, DEMO, score_thr=0.3)
+        pred = res["predictions"][0]
+        check("DetInferencer", all(np.array_equal(pred[k], direct[k])
+                                   for k in ("boxes", "scores", "labels")),
+              "differs from inference_detector")
+        drawn = os.path.join(tmp, "vis", "demo.jpg")
+        check("DetInferencer drawing", os.path.getsize(drawn) > 0, drawn)
+        out["det_inferencer"] = {"detections": len(pred["boxes"]), "drawing_bytes":
+                                 os.path.getsize(drawn),
+                                 "ms": host_ms(torch, lambda: inf(DEMO), 3)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"phase": "zoo once each", "card": card, **out,
+         "measured": "host clock, ending in torch.cuda.synchronize"})
+
+
+def zoo_phase(torch, dev, card: str, state):
+    """Phase 9: the two-stage family (see the module docstring)."""
+    t0 = time.perf_counter()
+    paths = {}
+    results = zoo_kernel_phase(torch, dev)
+    batch = coco_batch(torch, COCO_BATCH, SEED + 30, masks=True)
+    for kind, config_file in FAMILIES:
+        family_phase(torch, dev, card, kind, config_file, batch, paths)
+    zoo_once_phase(torch, dev, card, batch, state, paths)
+    log({"phase": "zoo", "seconds": time.perf_counter() - t0})
+    return results, paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1851,7 +2459,11 @@ def main() -> int:
         launches_train, step_ms = train_phase(torch, card, state)
         chain = task_chain_phase(torch, card, state)
         runs = runner_phase(torch, card, state, step_ms)
-        by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain, **runs}
+        eval_phase(card)
+        zoo_results, zoo_paths = zoo_phase(torch, dev, card, state)
+        results.update(zoo_results)
+        by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain, **runs,
+                   **zoo_paths}
 
         kernels = []
         for name in KERNELS:
@@ -1879,6 +2491,14 @@ def main() -> int:
                     kernels[-1][sub] = {k: r16[k] for k in (
                         "bound_ms", "device_ms", "nms_kernels_device_ms", "ious_evaluated")} | {
                         "ms": r16["kernel_ms"]}
+            # the model zoo's shapes: RoIAlign at 14x14, NMS at 80,000 per
+            # image, the assignment over the 800x1344 canvas's anchors
+            zoo = {"/".join(key[1:]): {k: e[k] for k in (
+                "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+                if k in e} for key, e in results.items() if key[0] == name and len(key) == 3
+                and key[2] in ("mask14", "zoo80000", "coco")}
+            if zoo:
+                kernels[-1]["zoo_shapes"] = zoo
             if "library_device_ms" in r:  # the conv kernels, also at batch 16
                 kernels[-1]["library_device_ms"] = r["library_device_ms"]
                 r16 = results[(name, "bfloat16", TRAIN_BATCH)]  # 16 images (the train step's rpn_head)

@@ -1,9 +1,10 @@
 """User-facing inference API.
 
 Counterpart of nsgp_repre_tpu/apis/inference.py: ``Detector``,
-``init_detector``, ``_pack_images`` and ``inference_detector``
-(mmdet/apis/inference.py:26,122). ``DetInferencer`` and visualisation
-wait (ROADMAP.md, "Predict options not ported").
+``init_detector``, ``_pack_images``, ``inference_detector``
+(mmdet/apis/inference.py:26,122), ``DetInferencer``
+(det_inferencer.py:45: predictions and, under ``out_dir``, the drawn
+detections) and ``_save_image``.
 
 The detector runs on ``cuda`` unless the caller passes a device. With
 no device named and no CUDA device present, ``init_detector`` raises:
@@ -11,7 +12,9 @@ it never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+import os
+import os.path as osp
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ class Detector:
         self.img_scale = img_scale
         self.device = torch.device(device)
         self._eval_step = make_eval_step(model)
+        self.classes: Optional[Sequence[str]] = None
 
     def predict_batch(self, batch: DetBatch) -> InstanceArray:
         return self._eval_step(batch)
@@ -120,3 +124,47 @@ def inference_detector(
         keep = valid[i] & (scores[i] >= score_thr)
         out.append(dict(boxes=boxes[i][keep], scores=scores[i][keep], labels=labels[i][keep]))
     return out[0] if single else out
+
+
+class DetInferencer:
+    """Config-driven inferencer (det_inferencer.py:45 surface):
+    ``init_detector`` of ``model`` and ``weights`` on ``device``, then per
+    call the detections above ``pred_score_thr`` of each input and, with
+    an ``out_dir``, each input drawn with them under the input's file name
+    (``{i}.jpg`` for arrays)."""
+
+    def __init__(self, model: Union[str, Config], weights: Optional[str] = None,
+                 pred_score_thr: float = 0.3,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.detector = init_detector(model, weights, device=device)
+        self.pred_score_thr = pred_score_thr
+
+    def __call__(self, inputs: Union[str, np.ndarray, List], out_dir: str = "",
+                 no_save_vis: bool = False, return_vis: bool = False) -> dict:
+        items = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+        predictions = inference_detector(self.detector, items, score_thr=self.pred_score_thr)
+        visualizations = []
+        if out_dir and not no_save_vis:
+            from ..visualization import draw_detections
+
+            os.makedirs(out_dir, exist_ok=True)
+            for i, (item, pred) in enumerate(zip(items, predictions)):
+                img = load_image(item) if isinstance(item, str) else item
+                vis = draw_detections(img, pred, class_names=self.detector.classes)
+                name = osp.basename(item) if isinstance(item, str) else f"{i}.jpg"
+                _save_image(osp.join(out_dir, name), vis)
+                if return_vis:
+                    visualizations.append(vis)
+        return dict(predictions=predictions, visualization=visualizations)
+
+
+def _save_image(path: str, img: np.ndarray) -> None:
+    """Write an RGB image (cv2, else PIL)."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(img).save(path)
+        return
+    cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))

@@ -683,22 +683,41 @@ class NullSpaceRunner:
         self.cal_rois()
 
     # ------------------------------------------------------------------
+    def _visualize(self, batch, img_ids, boxes, scores, labels, valid) -> None:
+        """Each listed image of a val batch drawn with its gts (left) and
+        its detections (right) to ``<work_dir>/vis_data/<img_id>.jpg``
+        (runner.py:886-915 in JAX: the batch's canvas image, the
+        detections as predict returns them)."""
+        from ..visualization import DetLocalVisualizer
+
+        vis = DetLocalVisualizer(osp.join(self.work_dir, "vis_data"),
+                                 class_names=getattr(self.val_dataset, "classes", None))
+        imgs = batch.images.cpu().numpy()
+        gt_boxes, gt_labels, gt_valid = (t.cpu().numpy() for t in (
+            batch.gt.boxes, batch.gt.labels, batch.gt.valid))
+        for i, img_id in enumerate(img_ids):
+            v, gv = valid[i], gt_valid[i]
+            pred = dict(boxes=boxes[i][v], scores=scores[i][v], labels=labels[i][v])
+            vis.add_datasample(str(img_id), imgs[i], pred,
+                               gt=dict(boxes=gt_boxes[i][gv], labels=gt_labels[i][gv]))
+
     @torch.no_grad()
     def val(self, dump_to: Optional[str] = None) -> float:
         """Predict over the val set and score it (VOC or COCO mAP by
         ``val_evaluator``); with ``dump_to`` also pickle the per-image
         detections (img_id, boxes, scores, labels), the reference's
         ``tools/test.py --out`` (DumpDetResults)."""
-        if self.cfg.get("vis_images", 0) > 0:
-            raise NotImplementedError(
-                "vis_images: visualization waits for ROADMAP.md queue 1 item 2")
         t0 = time.perf_counter()
         detections, annotations = [], []
         dumped = [] if dump_to else None
+        vis_budget = self.cfg.get("vis_images", 0)  # DetVisualizationHook
         for batch, img_ids in self.val_loader:
             dets = self.eval_step(batch)
             boxes, scores, labels, valid = (t.cpu().numpy() for t in (
                 dets.boxes, dets.scores, dets.labels, dets.valid))
+            if vis_budget > 0:
+                self._visualize(batch, img_ids[:vis_budget], boxes, scores, labels, valid)
+                vis_budget -= len(img_ids)
             for i in range(len(img_ids)):
                 per_cls = {}
                 for c in range(self.det_cfg.num_classes):

@@ -1,4 +1,4 @@
-"""VOC and COCO detection metrics on the host (numpy)."""
+"""VOC and COCO detection metrics on the host (native matching)."""
 from .coco_map import eval_coco_map
 from .voc_map import eval_voc_map
 

@@ -7,14 +7,17 @@ implementation of the COCOeval protocol: IoU thresholds 0.50:0.95:0.05,
 area ranges (all/small/medium/large).
 
 Counterpart of nsgp_repre_tpu/evaluation/coco_map.py, the port's own
-numpy copy: the numpy path of ``_evaluate_img`` only (the JAX package's
-native match is not loaded; ROADMAP.md, queue 1 item 2).
+copy. The per-image match runs in native/det_eval.cpp through the port's
+loader (evaluation/native.py); :func:`_match_numpy`, the numpy matcher,
+is the reference the tests hold it to.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from .native import coco_match
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -48,7 +51,16 @@ def _evaluate_img(det_boxes, det_scores, gt_boxes, gt_crowd, area_rng, max_dets)
     """
     order = np.argsort(-det_scores, kind="stable")[:max_dets]
     det_boxes, det_scores = det_boxes[order], det_scores[order]
+    dtm, dti, gti = coco_match(det_boxes, gt_boxes, gt_crowd, IOU_THRS, *area_rng)
+    return dtm, dti, gti, det_scores
 
+
+def _match_numpy(det_boxes, gt_boxes, gt_crowd, iou_thrs, area_lo, area_hi):
+    """COCOeval's greedy match of one image and class (dets sorted by
+    score) in numpy: the reference of native.coco_match, with its
+    arguments and results, but gt_ignore with the ignored gts last (the
+    evaluator only counts it)."""
+    area_rng = (area_lo, area_hi)
     g_area = (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1])
     gt_ig = gt_crowd | (g_area < area_rng[0]) | (g_area > area_rng[1])
     # sort gts: non-ignored first (COCOeval convention)
@@ -56,10 +68,10 @@ def _evaluate_img(det_boxes, det_scores, gt_boxes, gt_crowd, area_rng, max_dets)
     gt_boxes, gt_ig, gt_crowd = gt_boxes[g_order], gt_ig[g_order], gt_crowd[g_order]
 
     ious = _iou_with_crowd(det_boxes, gt_boxes, gt_crowd)
-    T, D, G = len(IOU_THRS), len(det_boxes), len(gt_boxes)
+    T, D, G = len(iou_thrs), len(det_boxes), len(gt_boxes)
     dtm = np.zeros((T, D), np.int64) - 1
     gtm = np.zeros((T, G), np.int64) - 1
-    for ti, thr in enumerate(IOU_THRS):
+    for ti, thr in enumerate(iou_thrs):
         for d in range(D):
             best_iou = min(thr, 1 - 1e-10)
             best_g = -1
@@ -83,7 +95,7 @@ def _evaluate_img(det_boxes, det_scores, gt_boxes, gt_crowd, area_rng, max_dets)
             [gt_ig[m] if m >= 0 else False for m in dtm[ti]], dtype=bool
         )
         dt_ig[ti] = matched_ig | ((dtm[ti] < 0) & dt_out_of_range)
-    return dtm >= 0, dt_ig, gt_ig, det_scores
+    return dtm >= 0, dt_ig, gt_ig
 
 
 def eval_coco_map(

@@ -7,15 +7,17 @@ best-IoU unclaimed gt; 'difficult' gts are ignored — a match to one is
 neither TP nor FP and they don't count toward recall).
 
 Counterpart of nsgp_repre_tpu/evaluation/voc_map.py, the port's own
-numpy copy. It takes the numpy path of ``_tpfp_single`` only; the JAX
-package's native path (native/libnsgp_native.so), which its tests hold
-to this numpy path, is not loaded (ROADMAP.md, queue 1 item 2).
+copy. The TP/FP matching runs in native/det_eval.cpp through the port's
+loader (evaluation/native.py); :func:`_tpfp_numpy`, the numpy matcher,
+is the reference the tests hold it to.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from .native import voc_tpfp
 
 
 def _iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -31,14 +33,14 @@ def _iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return inter / np.maximum(union, 1e-6)
 
 
-def _tpfp_single(
+def _tpfp_numpy(
     det_boxes: np.ndarray,
-    det_scores: np.ndarray,
     gt_boxes: np.ndarray,
     gt_ignore: np.ndarray,
     iou_thr: float,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """TP/FP flags for one image, one class (dets pre-sorted by score)."""
+    """TP/FP flags for one image, one class (dets pre-sorted by score), in
+    numpy: the reference of native.voc_tpfp."""
     nd = len(det_boxes)
     tp = np.zeros(nd, np.float32)
     fp = np.zeros(nd, np.float32)
@@ -112,7 +114,7 @@ def eval_voc_map(
             boxes, scores = det.get(cls, (np.zeros((0, 4), np.float32), np.zeros(0)))
             order = np.argsort(-scores, kind="stable")
             boxes, scores = boxes[order], scores[order]
-            tp, fp = _tpfp_single(boxes, scores, g_boxes, g_ign, iou_thr)
+            tp, fp = voc_tpfp(boxes, g_boxes, g_ign, iou_thr)
             all_tp.append(tp)
             all_fp.append(fp)
             all_scores.append(scores)

@@ -24,8 +24,10 @@ order JAX splits its key: the RPN's (B, N) for the anchors, then the
 RoI head's two (B, G + proposals) draws (masks, then gather order), G
 the RoI gt set's capacity (merged with the teacher's detections on
 task 2). They come from a ``torch.Generator`` or are passed in, so a
-test can feed JAX's draws. The ``matrix`` proposal NMS and soft-NMS are
-not ported yet (ROADMAP.md, "Predict options not ported").
+test can feed JAX's draws. ``rpn_nms_impl='matrix'`` runs the NMS kernel
+with JAX's batch-wide group offset (ops/nms_cuda.py::batched_nms_matrix);
+``nms_type='soft_nms'`` takes the plain-PyTorch ``batched_soft_nms`` of
+ops/nms.py (no kernel in JAX either).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ import torch.nn as nn
 
 from ..ops.anchors import AnchorGenerator
 from ..ops.assign_cuda import rpn_assign_targets
-from ..ops.nms_cuda import batched_nms
+from ..ops.nms import batched_soft_nms
+from ..ops.nms_cuda import batched_nms, batched_nms_matrix
 from ..ops.roi_align_cuda import multilevel_roi_align
 from ..ops.topk import top_k
 from ..structures.boxes import bbox2delta, delta2bbox
@@ -53,9 +56,6 @@ from .resnet import ResNet50
 from .rpn_head import RPNHead
 from .samplers import random_sample_gather, random_sample_masks
 
-NOT_PORTED = "{} is not ported yet (ROADMAP.md, queue 1: {})"
-
-
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Static hyperparameters (faster-rcnn_r50_fpn.py train/test cfg).
@@ -66,7 +66,9 @@ class DetectorConfig:
     is ignored (top-k is always exact), both ``roi_align_mode`` values
     run the RoIAlign kernel with mmdet routing, ``stem_s2d`` is ignored
     (a plain conv computes the same function), and ``rpn_nms_impl``
-    'auto', 'pallas' and 'xla' all run the NMS kernel.
+    'auto', 'pallas' and 'xla' all run the NMS kernel ('matrix' runs it
+    too, with the group offset over the whole batch as JAX's matrix form
+    takes it).
     """
 
     num_classes: int = 20
@@ -123,8 +125,8 @@ class DetectorConfig:
     compute_dtype: str = "float32"
     # approximate pre-NMS top-k (JAX on a TPU only; the port is exact)
     use_approx_topk: bool = True
-    # proposal-NMS implementation: 'matrix' (tiled exact greedy, not
-    # ported), 'pallas' / 'xla' / 'auto' (greedy NMS: the kernel here)
+    # proposal-NMS implementation: 'matrix' (exact greedy with a batch-wide
+    # group offset), 'pallas' / 'xla' / 'auto' (greedy NMS); the kernel here
     rpn_nms_impl: str = "auto"
     # sparse RPN loss path: the RPN losses are evaluated at the sampled
     # anchors only (RPNHead.at_positions) and the dense head runs forward
@@ -176,15 +178,24 @@ class FasterRCNN(nn.Module):
                                  frozen_stages=cfg.frozen_stages)
         self.neck = FPN(out_channels=256, num_outs=5)
         self.rpn_head = RPNHead(256, 256, cfg.num_base_priors)
-        self.roi_head = _RoIHead(Shared2FCBBoxHeadTask(
-            task_split=cfg.task_split, task_id=cfg.task_id, num_classes=cfg.num_classes))
+        self.roi_head = self._build_roi_head()
         self.anchor_gen = AnchorGenerator(
             strides=cfg.anchor_strides, ratios=cfg.anchor_ratios, scales=cfg.anchor_scales)
         self._anchor_cache: Dict[tuple, torch.Tensor] = {}
 
+    def _build_roi_head(self) -> Optional[nn.Module]:
+        """The RoI head (``roi_head.*``); the model zoo's families override it."""
+        cfg = self.config
+        return _RoIHead(Shared2FCBBoxHeadTask(
+            task_split=cfg.task_split, task_id=cfg.task_id, num_classes=cfg.num_classes))
+
     @property
     def bbox_head(self) -> Shared2FCBBoxHeadTask:
         return self.roi_head.bbox_head
+
+    def _bbox_heads(self) -> List[Shared2FCBBoxHeadTask]:
+        """Every bbox head of the model (one here; a cascade's stages)."""
+        return [self.bbox_head]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -217,12 +228,13 @@ class FasterRCNN(nn.Module):
         for m in self.rpn_head.modules():
             if isinstance(m, CovConv):
                 normal_(m.weight, 0.01)
-        for m in self.bbox_head.shared_fcs:
-            xavier_(m.weight)
-        for m in self.bbox_head.fc_cls:
-            normal_(m.weight, 0.01)
-        for m in self.bbox_head.fc_reg:
-            normal_(m.weight, 0.001)
+        for head in self._bbox_heads():
+            for m in head.shared_fcs:
+                xavier_(m.weight)
+            for m in head.fc_cls:
+                normal_(m.weight, 0.01)
+            for m in head.fc_reg:
+                normal_(m.weight, 0.001)
         for m in self.modules():
             if isinstance(m, (CovConv, CovDense)) and m.bias is not None:
                 m.bias.zero_()
@@ -392,9 +404,6 @@ class FasterRCNN(nn.Module):
         cfg = self.config
         if cfg.rpn_nms_impl not in ("auto", "matrix", "pallas", "xla"):
             raise ValueError(f"unknown rpn_nms_impl {cfg.rpn_nms_impl!r}")
-        if cfg.rpn_nms_impl == "matrix":
-            raise NotImplementedError(
-                NOT_PORTED.format("rpn_nms_impl='matrix'", "predict options not ported"))
         shape = img_shape.to(device=cls_flat.device, dtype=torch.float32)
         max_shape = (shape[:, 0].view(B, 1, 1), shape[:, 1].view(B, 1, 1))
         boxes_l, scores_l, lvl_l = [], [], []
@@ -414,8 +423,9 @@ class FasterRCNN(nn.Module):
         scores = torch.cat(scores_l, dim=1)
         lvls = torch.cat(lvl_l, dim=1)
         wh_ok = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
-        keep_idx, p_valid = batched_nms(boxes, scores, lvls, wh_ok, cfg.rpn_nms_iou,
-                                        cfg.rpn_max_per_img)
+        nms_fn = batched_nms_matrix if cfg.rpn_nms_impl == "matrix" else batched_nms
+        keep_idx, p_valid = nms_fn(boxes, scores, lvls, wh_ok, cfg.rpn_nms_iou,
+                                   cfg.rpn_max_per_img)
         keep = keep_idx.long()
         p_boxes = torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4))
         p_scores = torch.gather(scores, 1, keep)
@@ -435,13 +445,21 @@ class FasterRCNN(nn.Module):
         Returns the flat (B * rcnn_num) rois, batch indices, labels,
         validity, positive flags and regression targets."""
         cfg = self.config
+        thr = (cfg.rcnn_pos_iou_thr, cfg.rcnn_neg_iou_thr, cfg.rcnn_min_pos_iou)
+        return self._sample(proposals, gt, u, u2, thr, cfg.rcnn_target_stds)[:6]
+
+    def _sample(self, proposals: InstanceArray, gt: InstanceArray, u, u2, thr, stds):
+        """:meth:`_sample_rois` with the assigner's (pos, neg, min_pos) IoU
+        thresholds ``thr`` and the coder's ``stds`` given (a cascade
+        stage's), and one more output: the flat ``is_gt``, True where the
+        sampled slot indexes the injected gt block (cascade.py:140-156)."""
+        cfg = self.config
         B = proposals.boxes.shape[0]
         dev = proposals.boxes.device
         cand_boxes = torch.cat([gt.boxes, proposals.boxes], dim=1)
         cand_valid = torch.cat([gt.valid, proposals.valid], dim=1)
         assigned, _ = max_iou_assign(
-            cand_boxes, gt.boxes, gt.valid,
-            cfg.rcnn_pos_iou_thr, cfg.rcnn_neg_iou_thr, cfg.rcnn_min_pos_iou,
+            cand_boxes, gt.boxes, gt.valid, *thr,
             match_low_quality=False, prior_valid=cand_valid,
         )
         idx, idx_valid, idx_pos = random_sample_gather(
@@ -452,11 +470,13 @@ class FasterRCNN(nn.Module):
         labels = torch.where(idx_pos, torch.gather(gt.labels, 1, g), cfg.num_classes)
         labels = torch.where(idx_valid, labels, cfg.num_classes)
         tgt = bbox2delta(rois, torch.gather(gt.boxes, 1, g[..., None].expand(B, S, 4)),
-                         stds=cfg.rcnn_target_stds)
+                         stds=stds)
         tgt = torch.where(idx_pos[..., None], tgt, torch.zeros_like(tgt))
         batch_idx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(S)
         flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
-        return flat(rois), batch_idx, flat(labels), flat(idx_valid), flat(idx_pos), flat(tgt)
+        is_gt = idx < gt.boxes.shape[1]
+        return (flat(rois), batch_idx, flat(labels), flat(idx_valid), flat(idx_pos), flat(tgt),
+                flat(is_gt))
 
     def _roi_feats(self, feats, rois, batch_idx):
         """RoIAlign in the compute dtype (f32 accumulation inside),
@@ -471,22 +491,49 @@ class FasterRCNN(nn.Module):
             sampling_ratio=cfg.roi_sampling_ratio, finest_scale=cfg.roi_finest_scale,
         ).to(self.dtype)
 
-    def roi_loss(self, feats, proposals: InstanceArray, gt: InstanceArray, u=None, u2=None,
-                 generator=None, replay_feats: Optional[torch.Tensor] = None,
+    def priority_shapes(self, batch_size: int, gt_slots: int,
+                        num_anchors: int) -> Dict[str, Tuple[int, int]]:
+        """The shape of every sampling draw :meth:`loss` reads, keyed and
+        ordered as it draws them: ``rpn`` (B, anchors), then the RoI
+        head's ``roi`` and ``roi2`` (B, G + proposals)."""
+        n = (batch_size, gt_slots + self.config.rpn_max_per_img)
+        return {"rpn": (batch_size, num_anchors), "roi": n, "roi2": n}
+
+    def roi_loss(self, feats, proposals: InstanceArray, gt: InstanceArray,
+                 img_shape: Optional[torch.Tensor] = None,
+                 priorities: Optional[Dict[str, torch.Tensor]] = None, generator=None,
+                 replay_feats: Optional[torch.Tensor] = None,
                  replay_labels: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """RoI-head losses on sampled proposals (standard_roi_head.py:95,
         detector.py:586-613): ``loss_cls``, ``loss_bbox`` and ``acc``, and
-        ``replay_loss_cls`` when prototypes are given. ``u``/``u2``:
-        (B, G + P) sampling priorities, else drawn from ``generator`` in
-        that order."""
-        cfg = self.config
+        ``replay_loss_cls`` when prototypes are given. ``priorities`` may
+        hold ``roi``/``roi2``, (B, G + P) each, else they are drawn from
+        ``generator`` in that order. Every family takes these arguments;
+        ``img_shape`` (B, 2) is read by the cascade's refinement only."""
+        p = priorities or {}
         B, P = proposals.boxes.shape[:2]
         dev = proposals.boxes.device
         shape = (B, gt.boxes.shape[1] + P)
-        u = self._priorities(u, shape, generator, dev)
-        u2 = self._priorities(u2, shape, generator, dev)
+        u = self._priorities(p.get("roi"), shape, generator, dev)
+        u2 = self._priorities(p.get("roi2"), shape, generator, dev)
         gt = gt.to(dev)
         rois, batch_idx, labels, valid, pos, tgt = self._sample_rois(proposals, gt, u, u2)
+        losses = self._bbox_losses(feats, rois, batch_idx, labels, valid, pos, tgt)
+        losses.update(self._extra_roi_losses(feats, rois, batch_idx, labels, pos, gt))
+        if replay_feats is not None:
+            losses["replay_loss_cls"] = self.replay_loss(replay_feats, replay_labels)
+        return losses
+
+    def _extra_roi_losses(self, feats, rois, batch_idx, labels, pos,
+                          gt: InstanceArray) -> Dict[str, torch.Tensor]:
+        """Losses a family adds on the same sampled RoIs (the mask head's)."""
+        return {}
+
+    def _bbox_losses(self, feats, rois, batch_idx, labels, valid, pos,
+                     tgt) -> Dict[str, torch.Tensor]:
+        """``loss_cls``, ``loss_bbox`` (L1 on the sampled class's
+        regression) and ``acc`` of the sampled RoIs (detector.py:586-608)."""
+        cfg = self.config
         roi_feats = self._roi_feats(feats, rois, batch_idx)
         cls_score, bbox_pred = self.bbox_head(roi_feats)
         cls_score = cls_score.float()
@@ -501,14 +548,11 @@ class FasterRCNN(nn.Module):
         cls_idx = torch.clamp(labels, 0, cfg.num_classes - 1).long()
         sel = torch.gather(pred4, 1, cls_idx[:, None, None].expand(n, 1, 4))[:, 0]
         loss_bbox = weighted_l1(sel, tgt, pos[:, None].float(), avg)
-        losses = {
+        return {
             "loss_cls": loss_cls,
             "loss_bbox": loss_bbox,
             "acc": accuracy(cls_score, labels, label_w),
         }
-        if replay_feats is not None:
-            losses["replay_loss_cls"] = self.replay_loss(replay_feats, replay_labels)
-        return losses
 
     def bbox_forward(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The bbox head on stored flattened RoI features (R, C*7*7), torch
@@ -558,8 +602,7 @@ class FasterRCNN(nn.Module):
             feats, rpn_gt if rpn_gt is not None else batch.gt, batch.img_shape, with_loss=True,
             u=p.get("rpn"), generator=generator)
         roi_losses = self.roi_loss(feats, proposals, roi_gt if roi_gt is not None else batch.gt,
-                                   u=p.get("roi"), u2=p.get("roi2"), generator=generator,
-                                   replay_feats=replay_feats, replay_labels=replay_labels)
+                                   batch.img_shape, p, generator, replay_feats, replay_labels)
         return {**rpn_losses, **roi_losses}
 
     # ------------------------------------------------------------------
@@ -576,9 +619,6 @@ class FasterRCNN(nn.Module):
         """RoI-stage predict on given proposals (StandardRoIHead.predict +
         bbox_head.py:427), batched over images."""
         cfg = self.config
-        if cfg.nms_type == "soft_nms":
-            raise NotImplementedError(
-                NOT_PORTED.format("nms_type='soft_nms'", "predict options not ported"))
         nc = cfg.num_classes
         B, R = proposals.boxes.shape[:2]
         dev = proposals.boxes.device
@@ -601,14 +641,23 @@ class FasterRCNN(nn.Module):
         flat_scores = probs.reshape(B, -1)
         flat_labels = torch.arange(nc, dtype=torch.int32, device=dev).repeat(B, R)
         ok = (flat_scores > cfg.score_thr) & proposals.valid.repeat_interleave(nc, dim=1)
-        keep_idx, dv = batched_nms(flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou,
-                                   cfg.max_per_img)
+        # multiclass NMS (bbox_nms.py:12): greedy (the kernel), or soft-NMS
+        # with its decayed scores (detector.py:739-752 in JAX)
+        if cfg.nms_type == "soft_nms":
+            keep_idx, dv, scores = batched_soft_nms(
+                flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou, cfg.max_per_img,
+                sigma=cfg.soft_nms_sigma, min_score=cfg.soft_nms_min_score,
+                method=cfg.soft_nms_method)
+        else:
+            keep_idx, dv = batched_nms(flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou,
+                                       cfg.max_per_img)
+            scores = None
         keep = keep_idx.long()
         return InstanceArray(
             boxes=torch.gather(flat_boxes, 1, keep[..., None].expand(-1, -1, 4)),
             labels=torch.gather(flat_labels, 1, keep),
             valid=dv,
-            scores=torch.gather(flat_scores, 1, keep),
+            scores=torch.gather(flat_scores, 1, keep) if scores is None else scores,
         )
 
     # ------------------------------------------------------------------

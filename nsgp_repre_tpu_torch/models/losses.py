@@ -1,10 +1,11 @@
 """Detection losses with mmdet weight/avg_factor semantics.
 
 Counterpart of nsgp_repre_tpu/models/losses.py: ``weighted_sigmoid_bce``,
-``weighted_softmax_ce``, ``weighted_l1`` and ``accuracy`` (mmdet
-cross_entropy_loss.py:202, smooth_l1_loss.py:118 L1Loss): elementwise
-loss times weight, summed and divided by ``avg_factor``. The focal and
-smooth-L1 losses serve the model zoo and are not ported yet.
+``weighted_softmax_ce``, ``weighted_l1``, ``weighted_smooth_l1`` and
+``accuracy`` (mmdet cross_entropy_loss.py:202, smooth_l1_loss.py:14,118):
+elementwise loss times weight, summed and divided by ``avg_factor``. The
+focal loss serves the single-stage models and is not ported yet
+(ROADMAP.md, queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -36,6 +37,14 @@ def weighted_softmax_ce(logits: torch.Tensor, labels: torch.Tensor, weights: tor
 def weighted_l1(pred: torch.Tensor, target: torch.Tensor, weights: torch.Tensor,
                 avg_factor) -> torch.Tensor:
     loss = torch.abs(pred - target)
+    return (loss * weights).sum() / _avg(avg_factor)
+
+
+def weighted_smooth_l1(pred: torch.Tensor, target: torch.Tensor, weights: torch.Tensor,
+                       avg_factor, beta: float = 1.0) -> torch.Tensor:
+    """Smooth L1 (mmdet SmoothL1Loss; the cascade's RoI regression)."""
+    diff = torch.abs(pred - target)
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
     return (loss * weights).sum() / _avg(avg_factor)
 
 

@@ -80,11 +80,22 @@ def count_ious(boxes, scores, valid, iou_threshold: float, max_out: int):
     return keep_idx, keep_valid, int(ious.item())
 
 
-def batched_nms(boxes, scores, idxs, valid, iou_threshold: float, max_out: int):
+def batched_nms(boxes, scores, idxs, valid, iou_threshold: float, max_out: int,
+                batch_wide: bool = False):
     """Class/level-aware greedy NMS over a batch: (B, N, 4) boxes, (B, N)
     scores, group ids and validity → keep_idx (B, max_out) int32 in pick
-    order (0 in unused slots) and keep_valid (B, max_out) bool."""
-    shifted = offset_boxes(boxes, idxs, valid)
+    order (0 in unused slots) and keep_valid (B, max_out) bool. The group
+    offset is per image, or over the whole batch with ``batch_wide``."""
+    shifted = offset_boxes(boxes, idxs, valid, batch_wide)
     if not boxes.is_cuda:
         return nms_plain(shifted, scores, valid, iou_threshold, max_out)
     return nms_kernel(shifted, scores, valid, iou_threshold, max_out)
+
+
+def batched_nms_matrix(boxes, scores, idxs, valid, iou_threshold: float, max_out: int,
+                       tile: int = 512):
+    """JAX's ``batched_nms_matrix`` (ops/nms.py:163): exact greedy NMS
+    with the group offset taken over the whole batch. Its block
+    fixed point gives the greedy walk's keep lists, so the walk computes
+    it; ``tile``, JAX's block size, is accepted and ignored."""
+    return batched_nms(boxes, scores, idxs, valid, iou_threshold, max_out, batch_wide=True)

@@ -16,12 +16,16 @@ import torch
 @dataclasses.dataclass
 class InstanceArray:
     """boxes (..., K, 4); labels (..., K) int32 (-1 padded); valid (..., K)
-    bool; scores (..., K) float (predictions only)."""
+    bool; scores (..., K) float (predictions only); masks, optional: for
+    gts (..., K, S, S) box-normalized crops (each gt's mask resampled over
+    its own box, structures/mask_paste.py::normalize_gt_masks), for
+    predictions (..., K, 28, 28) mask-head probabilities."""
 
     boxes: torch.Tensor
     labels: torch.Tensor
     valid: torch.Tensor
     scores: Optional[torch.Tensor] = None
+    masks: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -32,7 +36,11 @@ class InstanceArray:
 
     def to(self, device) -> "InstanceArray":
         return InstanceArray(*(None if t is None else t.to(device)
-                               for t in (self.boxes, self.labels, self.valid, self.scores)))
+                               for t in (self.boxes, self.labels, self.valid, self.scores,
+                                         self.masks)))
+
+    def replace(self, **kw) -> "InstanceArray":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass

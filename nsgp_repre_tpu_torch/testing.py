@@ -6,7 +6,9 @@ same seed gives the same numbers as the JAX factory) and
 :func:`tiny_detector_config` (a shrunken detector for fast CPU runs).
 :func:`split_loss_and_grads` runs the train step's loss in the two parts
 where two devices can part ways, so that a card run can be held against
-a CPU run of the same weights.
+a CPU run of the same weights; :func:`split_losses` does the same for any
+two-stage family of the model zoo (forward only), with the sampling
+draws of :func:`draw_priorities`.
 """
 from __future__ import annotations
 
@@ -109,7 +111,7 @@ def split_loss_and_grads(
                                               u=priorities["rpn"])
     if proposals is not None:
         props = proposals.to(dev)
-    roi = model.roi_loss(feats, props, roi_gt.to(dev), u=priorities["roi"], u2=priorities["roi2"],
+    roi = model.roi_loss(feats, props, roi_gt.to(dev), b.img_shape, priorities,
                          replay_feats=None if replay is None else replay[0],
                          replay_labels=None if replay is None else replay[1])
     losses = {**rpn, **roi}
@@ -119,3 +121,34 @@ def split_loss_and_grads(
     grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
              if p.grad is not None}
     return {k: float(v.detach()) for k, v in losses.items()}, grads, props
+
+
+def draw_priorities(model: FasterRCNN, batch_size: int, num_anchors: int, gt_slots: int,
+                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Every sampling draw one loss of ``model``'s family takes (uniform on
+    [0, 1), on the generator's device), keyed and drawn in the order of
+    ``model.priority_shapes``."""
+    return {k: torch.rand(shape, generator=generator, device=generator.device)
+            for k, shape in model.priority_shapes(batch_size, gt_slots, num_anchors).items()}
+
+
+@torch.no_grad()
+def split_losses(model: FasterRCNN, batch: DetBatch, priorities: Dict[str, torch.Tensor],
+                 proposals: Optional[InstanceArray] = None
+                 ) -> Tuple[Dict[str, float], InstanceArray]:
+    """A two-stage family's ``loss`` (Faster, Mask, Cascade or Cascade
+    Mask R-CNN; ``batch.images`` uint8), forward only and cut as
+    :func:`split_loss_and_grads` cuts it: the RPN losses and proposals,
+    then the RoI losses on ``proposals`` when given (another device's),
+    else on this run's own. Returns the loss terms and the proposals."""
+    dev = next(model.parameters()).device
+    b = batch.to(dev)
+    b = b.replace(images=normalize_images(b.images))
+    pri = {k: v.to(dev) for k, v in priorities.items()}
+    feats = model.extract_feat(b.images)
+    rpn, props = model.rpn_loss_and_proposals(feats, b.gt, b.img_shape, with_loss=True,
+                                              u=pri["rpn"])
+    if proposals is not None:
+        props = proposals.to(dev)
+    roi = model.roi_loss(feats, props, b.gt, b.img_shape, pri)
+    return {k: float(v) for k, v in {**rpn, **roi}.items()}, props

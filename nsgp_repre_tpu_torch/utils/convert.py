@@ -9,7 +9,15 @@ state dict; it is the exact inverse of
 nsgp_repre_tpu/utils/torch_convert.py::convert_detector_state_dict. A
 JAX gradient tree has the parameters' paths, so the same call maps
 gradients name by name. :func:`jax_flat_from_state_dict` is its exact
-inverse, the form the port writes its checkpoints in.
+inverse, the form the port writes its checkpoints in. The model zoo's
+heads map too: a cascade's ``cascade_head{i}/*`` onto mmdet's
+``roi_head.bbox_head.{i}.*`` and the mask head's ``mask_head/mask_conv{i}``,
+``upsample`` and ``conv_logits`` onto ``roi_head.mask_head.convs.{i}.conv``,
+``.upsample`` and ``.conv_logits``. Flax's ConvTranspose kernel (kh, kw,
+in, out) is torch's ConvTranspose2d weight (in, out, kh, kw) with both
+spatial axes flipped (flax convolves the dilated input with the kernel as
+stored; torch scatters with it, which is the convolution with the
+flipped kernel).
 :func:`port_name_from_jax` maps one parameter path (the key of the NSGP
 transforms and covariances) to a port name, and
 :func:`jax_path_from_port` maps a port name back.
@@ -23,6 +31,8 @@ import numpy as np
 import torch
 
 _BBOX = "roi_head.bbox_head"
+_MASK = "roi_head.mask_head"
+_UPSAMPLE = "mask_head/upsample"  # the one transposed conv
 
 # (JAX module path pattern, port module name template); first match wins
 _MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
@@ -42,6 +52,13 @@ _MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
     # per-task heads (convfc_bbox_head_task.py:94-107)
     (r"bbox_head/fc_cls_bg", lambda m, n_tasks: f"{_BBOX}.fc_cls.{n_tasks}"),
     (r"bbox_head/fc_reg(\d+)", lambda m, _: f"{_BBOX}.fc_reg.{m[1]}"),
+    (r"cascade_head(\d+)/shared_fc(\d+)",
+     lambda m, _: f"{_BBOX}.{m[1]}.shared_fcs.{int(m[2]) - 1}"),
+    (r"cascade_head(\d+)/fc_cls(\d+)", lambda m, _: f"{_BBOX}.{m[1]}.fc_cls.{m[2]}"),
+    (r"cascade_head(\d+)/fc_cls_bg", lambda m, n_tasks: f"{_BBOX}.{m[1]}.fc_cls.{n_tasks}"),
+    (r"cascade_head(\d+)/fc_reg(\d+)", lambda m, _: f"{_BBOX}.{m[1]}.fc_reg.{m[2]}"),
+    (r"mask_head/mask_conv(\d+)", lambda m, _: f"{_MASK}.convs.{m[1]}.conv"),
+    (r"mask_head/(upsample|conv_logits)", lambda m, _: f"{_MASK}.{m[1]}"),
 ]
 
 # the inverse of _MODULES: (port module name pattern, JAX module path template)
@@ -59,6 +76,14 @@ _JAX_MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
     (rf"{_BBOX}\.fc_cls\.(\d+)",
      lambda m, n_tasks: "bbox_head/fc_cls_bg" if int(m[1]) == n_tasks else f"bbox_head/fc_cls{m[1]}"),
     (rf"{_BBOX}\.fc_reg\.(\d+)", lambda m, _: f"bbox_head/fc_reg{m[1]}"),
+    (rf"{_BBOX}\.(\d+)\.shared_fcs\.(\d+)",
+     lambda m, _: f"cascade_head{m[1]}/shared_fc{int(m[2]) + 1}"),
+    (rf"{_BBOX}\.(\d+)\.fc_cls\.(\d+)",
+     lambda m, n_tasks: f"cascade_head{m[1]}/fc_cls_bg" if int(m[2]) == n_tasks
+     else f"cascade_head{m[1]}/fc_cls{m[2]}"),
+    (rf"{_BBOX}\.(\d+)\.fc_reg\.(\d+)", lambda m, _: f"cascade_head{m[1]}/fc_reg{m[2]}"),
+    (rf"{_MASK}\.convs\.(\d+)\.conv", lambda m, _: f"mask_head/mask_conv{m[1]}"),
+    (rf"{_MASK}\.(upsample|conv_logits)", lambda m, _: f"mask_head/{m[1]}"),
 ]
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
@@ -73,12 +98,21 @@ def _module_name(path: str, n_tasks: int) -> str:
     raise KeyError(f"no port module for JAX path {path!r}")
 
 
-def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+def _to_torch_layout(path: str, leaf: str, arr: np.ndarray) -> np.ndarray:
     if leaf != "kernel":
         return arr
+    if path == _UPSAMPLE:  # (H, W, I, O) → (I, O, H, W), flipped in H and W
+        return np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
     if arr.ndim == 4:  # (H, W, I, O) → (O, I, H, W)
         return np.transpose(arr, (3, 2, 0, 1))
     return np.transpose(arr, (1, 0))  # (in, out) → (out, in)
+
+
+def _to_jax_layout(path: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_to_torch_layout` for a ``kernel`` leaf."""
+    if path == f"{_UPSAMPLE}/kernel":
+        return np.ascontiguousarray(np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1)))
+    return np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)) if arr.ndim == 4 else arr.T)
 
 
 def port_name_from_jax(path: str, n_tasks: int) -> str:
@@ -114,7 +148,12 @@ def jax_path_from_port(name: str, n_tasks: int) -> str:
 
 
 def n_tasks_of(state: Dict[str, object]) -> int:
-    """The number of task heads of a port state dict (one ``fc_reg`` each)."""
+    """The number of task heads of a port state dict: one ``fc_reg`` each,
+    or, for a cascade (class-agnostic regression), the first stage's
+    ``fc_cls`` less the background one."""
+    cascade = {k for k in state if re.fullmatch(rf"{_BBOX}\.0\.fc_cls\.\d+\.weight", k)}
+    if cascade:
+        return len(cascade) - 1
     return sum(bool(re.fullmatch(rf"{_BBOX}\.fc_reg\.\d+\.weight", k)) for k in state)
 
 
@@ -136,8 +175,7 @@ def jax_flat_from_state_dict(
             continue
         path = jax_path_from_port(name, n_tasks)
         if path.endswith("/kernel"):
-            arr = np.ascontiguousarray(
-                np.transpose(arr, (2, 3, 1, 0)) if arr.ndim == 4 else arr.T)
+            arr = _to_jax_layout(path, arr)
         params[path] = arr
     return params, stats
 
@@ -146,7 +184,8 @@ def state_dict_from_jax(
     params_flat: Dict[str, np.ndarray], stats_flat: Dict[str, np.ndarray]
 ) -> Dict[str, torch.Tensor]:
     """Flat JAX params and batch stats → the port's (mmdet-named) state dict."""
-    n_tasks = sum(bool(re.fullmatch(r"bbox_head/fc_cls\d+/kernel", k)) for k in params_flat)
+    n_tasks = sum(bool(re.fullmatch(r"(bbox_head|cascade_head0)/fc_cls\d+/kernel", k))
+                  for k in params_flat)
     out: Dict[str, torch.Tensor] = {}
     for flat, leaves in ((params_flat, _PARAM_LEAVES), (stats_flat, _STAT_LEAVES)):
         for key, arr in flat.items():
@@ -154,6 +193,6 @@ def state_dict_from_jax(
             if leaf not in leaves:
                 raise KeyError(f"unknown leaf {leaf!r} in {key!r}")
             name = f"{_module_name(path, n_tasks)}.{leaves[leaf]}"
-            arr = _to_torch_layout(leaf, np.asarray(arr, dtype=np.float32))
-            out[name] = torch.tensor(arr).contiguous()
+            arr = _to_torch_layout(path, leaf, np.asarray(arr, dtype=np.float32))
+            out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -131,14 +131,31 @@ def test_init_detector_loads_jax_npz_and_pth(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in (dict(rpn_nms_impl="matrix"), dict(nms_type="soft_nms")):
+    """What is not ported raises, naming ROADMAP.md: here the model zoo's
+    RetinaNet. The two predict options that raised here before
+    (rpn_nms_impl='matrix', nms_type='soft_nms') are ported
+    (tests/test_torch_api.py holds them against JAX): predict runs with
+    each and returns the padded detections, and an unknown rpn_nms_impl
+    raises."""
+    from nsgp_repre_tpu_torch.models.zoo import build_config
+
+    for kw in (dict(rpn_nms_impl="matrix"), dict(nms_type="soft_nms"),
+               dict(rpn_nms_impl="unknown")):
         cfg = tdet.DetectorConfig(backbone_blocks=(1, 1, 1, 1), max_per_img=4,
                                   rpn_max_per_img=8, rpn_nms_pre=16, **kw)
         m = tdet.FasterRCNN(cfg).eval()
         batch = api._pack_images(api.Detector(m, (96, 64), "cpu"),
                                  [np.zeros((64, 96, 3), np.uint8)])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            m.predict(batch.replace(images=batch.images.float()))
+        batch = batch.replace(images=batch.images.float())
+        if kw.get("rpn_nms_impl") == "unknown":
+            with pytest.raises(ValueError, match="rpn_nms_impl"):
+                m.predict(batch)
+            continue
+        dets = m.predict(batch)
+        assert dets.boxes.shape == (1, 4, 4) and bool(torch.isfinite(dets.boxes).all())
+    model = load_config("cl_faster_rcnn_cfgs/_base_/models/retinanet_r50_fpn.py")["model"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_config(model)
 
 
 def test_pack_images_and_inference_api():

@@ -682,3 +682,127 @@ def test_small_runner_epoch_on_card(dev, tmp_path):
     assert all(torch.equal(v, card.model.state_dict()[k].cpu()) for k, v in fresh.state_dict().items())
     assert ckpt_io.load_covariance(card.work_dir) and len(ckpt_io.load_rois_etc(card.work_dir)[0]) == 10
     assert len(ckpt_io.load_ewc_terms(card.work_dir, 2)) == 34
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's shapes: the mask branch's 14x14 RoIAlign, the cascade's
+# 80,000 multiclass candidates per image, the anchors of an 800x1344 canvas
+# ---------------------------------------------------------------------------
+
+COCO_LEVELS = [(-(-800 // s), -(-1344 // s)) for s in (4, 8, 16, 32, 64)]
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_roi_align_kernels_at_14x14(dev, dt):
+    """The forward and backward at the mask branch's output_size 14 (the
+    backward's g slices take 50 KB of shared memory in f32, above the
+    48 KB default) against the plain versions, two calls bit for bit."""
+    g = torch.Generator().manual_seed(7)
+    B, C = 2, 256
+    level_hw = COCO_LEVELS[:4]
+    feats = [torch.randn(B, h, w, C, generator=g).to(dev, dt) for h, w in level_hw]
+    rois, bidx = _roi_set(g, "clustered", B, 1024, 800, 1344)
+    rois, bidx = rois.to(dev), bidx.to(dev)
+    got = roi_align_cuda.multilevel_roi_align(feats, rois, bidx, output_size=14)
+    again = roi_align_cuda.multilevel_roi_align(feats, rois, bidx, output_size=14)
+    ref = roi_align.multilevel_roi_align(feats, rois, bidx, output_size=14).to(dt)
+    assert got.shape == (1024, 14, 14, C) and torch.equal(got, again)
+    gout = torch.randn(1024, 14, 14, C, generator=g).to(dev, dt)
+    bwd = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt,
+                                                       output_size=14)
+    bwd2 = roi_align_cuda.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt,
+                                                        output_size=14)
+    bref = roi_align.multilevel_roi_align_backward(gout, rois, bidx, level_hw, B, dt,
+                                                   output_size=14)
+    assert all(torch.equal(x, y) for x, y in zip(bwd, bwd2))
+    for x, y in [(got, ref)] + list(zip(bwd, bref)):
+        if dt == torch.float32:
+            _close(x, y, dt, f32_rel=1e-5)
+        else:
+            assert (x.float() - y.float()).abs().max().item() <= 2 ** -7 * y.float().abs().max().item()
+
+
+def test_nms_kernel_at_80000_candidates(dev):
+    """The cascade's multiclass NMS: 1,000 boxes x 80 classes per image,
+    bf16-valued scores (ties), against the plain version, twice."""
+    g = torch.Generator().manual_seed(8)
+    B, R, Cn = 2, 1000, 80
+    xy = torch.rand(B, R, 1, 2, generator=g) * 1200
+    wh = torch.rand(B, R, 1, 2, generator=g) * 200 + 8
+    base = torch.cat([xy, xy + wh], -1)
+    boxes = (base + torch.randn(B, R, Cn, 4, generator=g) * 3).reshape(B, R * Cn, 4).to(dev)
+    scores = torch.softmax(torch.randn(B, R, Cn + 1, generator=g) * 3, -1)[..., :Cn]
+    scores = scores.reshape(B, -1).to(torch.bfloat16).float().to(dev)
+    labels = torch.arange(Cn, dtype=torch.int32).repeat(B, R).to(dev)
+    valid = scores > 0.05
+    assert valid.sum() > 1000
+    ki, kv = nms_cuda.batched_nms(boxes, scores, labels, valid, 0.5, 100)
+    again = nms_cuda.batched_nms(boxes, scores, labels, valid, 0.5, 100)
+    pi, pv = nms.batched_nms(boxes, scores, labels, valid, 0.5, 100)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert torch.equal(again[0], ki) and torch.equal(again[1], kv)
+
+
+def test_assign_kernel_at_the_coco_canvas(dev):
+    """The anchors of an 800x1344 canvas (268,569) against the plain
+    assignment, two calls bit for bit."""
+    from nsgp_repre_tpu_torch.ops.anchors import AnchorGenerator
+
+    anchors = torch.from_numpy(np.concatenate(AnchorGenerator().grid_anchors(COCO_LEVELS))).to(dev)
+    assert anchors.shape[0] == 268_569
+    _, gt, gt_valid, prior_valid = _assign_inputs(9, 2, anchors.shape[0], 16, True)
+    gt, gt_valid, prior_valid = gt.to(dev), gt_valid.to(dev), prior_valid.to(dev)
+    gt[:, 2] = anchors[100_000:100_002]
+    args = (anchors, gt, gt_valid, prior_valid, 0.7, 0.3, 0.3)
+    got = assign_cuda.rpn_assign_targets(*args)
+    again = assign_cuda.rpn_assign_targets(*args)
+    ref = assign_cuda.rpn_assign_targets_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert (got[0] >= 0).any()
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_small_mask_rcnn_step_card_matches_cpu(dev):
+    """Mask R-CNN (one bottleneck per stage, 4 classes) in f32 at batch 2:
+    the loss terms on the card within 1e-4 relative of the CPU's on the
+    card's proposals; then one SGD step on the card launches RoIAlign
+    forward and backward twice (7x7 and the mask branch's 14x14), keeps
+    the terms finite and moves the mask head."""
+    from nsgp_repre_tpu_torch.engine.train import normalize_images, total_loss, trainable_mask
+    from nsgp_repre_tpu_torch.models.zoo import build_detector
+    from nsgp_repre_tpu_torch.testing import demo_det_batch, draw_priorities, split_losses
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    model_cfg = load_config("cl_faster_rcnn_cfgs/_base_/models/mask-rcnn_r50_fpn.py")["model"]
+    kw = dict(num_classes=4, backbone_blocks=(1, 1, 1, 1), rpn_max_per_img=64, rcnn_num=32,
+              max_per_img=16)
+    cpu, cfg = build_detector(model_cfg, device="cpu", **kw)
+    card, _ = build_detector(model_cfg, device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    batch = demo_det_batch(2, 64, 96, num_instances=(2, 3), num_classes=4, gt_capacity=4, seed=1)
+    crops = torch.rand((2, 4, 56, 56), generator=torch.Generator().manual_seed(2)) > 0.5
+    batch = batch.replace(gt=batch.gt.replace(masks=crops.float()))
+    n = sum(-(-64 // s) * -(-96 // s) * cfg.num_base_priors for s in cfg.anchor_strides)
+    pri = draw_priorities(cpu, 2, n, 4, torch.Generator().manual_seed(3))
+    got, props = split_losses(card, batch, pri)
+    ref, _ = split_losses(cpu, batch, pri, proposals=props)
+    assert "loss_mask" in ref
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-4 * max(abs(ref[k]), 1e-3), (k, got[k], ref[k])
+
+    card.train()
+    mask = trainable_mask(card, cfg)
+    opt = torch.optim.SGD([p for n_, p in card.named_parameters() if mask[n_]], lr=0.02,
+                          momentum=0.9)
+    before = card.roi_head.mask_head.conv_logits.weight.detach().clone()
+    b = batch.to(dev)
+    _ext.reset_launches()
+    losses = card.loss(b.replace(images=normalize_images(b.images)),
+                       priorities={k: v.to(dev) for k, v in pri.items()})
+    total_loss(losses).backward()
+    opt.step()
+    assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 5, "nms": 1, "roi_align": 2,
+                                   "roi_align_bwd": 2, "assign": 1, "gather": 0}
+    assert all(torch.isfinite(v).item() for v in losses.values())
+    assert not torch.equal(before, card.roi_head.mask_head.conv_logits.weight)

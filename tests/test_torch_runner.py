@@ -290,6 +290,13 @@ def test_runner_refuses_what_it_lacks(chain, monkeypatch):
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         NullSpaceRunner(cfg, device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
-    monkeypatch.setitem(chain["r1"].cfg, "vis_images", 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        chain["r1"].val()
+    # validation's visualization is ported: vis_images=2 draws the first
+    # two val images (gts left, detections right) under vis_data/
+    r1 = chain["r1"]
+    monkeypatch.setitem(r1.cfg, "vis_images", 2)
+    vis_dir = os.path.join(r1.work_dir, "vis_data")
+    shutil.rmtree(vis_dir, ignore_errors=True)
+    r1.val()
+    drawn = sorted(os.listdir(vis_dir))
+    assert len(drawn) == 2 and all(n.endswith(".jpg") for n in drawn), drawn
+    shutil.rmtree(vis_dir)

@@ -164,7 +164,8 @@ _FC_NAMES = ("shared_fc1", "shared_fc2")
 def capture_relu_inputs(module, method_name):
     """capture_intermediates filter for :func:`jax_relu_inputs`."""
     name = module.name or ""
-    return name in _BN_NAMES or name in _FC_NAMES or name.startswith("layer")
+    return (name in _BN_NAMES or name in _FC_NAMES or name.startswith(("layer", "mask_conv"))
+            or name == "upsample")
 
 
 def jax_relu_inputs(intermediates):
@@ -187,11 +188,23 @@ def jax_relu_inputs(intermediates):
                                (3, d["bn3"]["__call__"][0] + ident)):
                     out.setdefault(f"{blk}/relu{i}", []).append(np.asarray(pre))
             prev = d["__call__"][0]
-        for n in _FC_NAMES:
-            if "bbox_head" in inter:
-                out.setdefault(f"bbox_head/{n}", []).extend(
-                    np.asarray(x) for x in inter["bbox_head"][n]["__call__"])
+        if "mask_head" in inter:
+            for name, d in inter["mask_head"].items():
+                out.setdefault(f"mask_head/{name}", []).extend(np.asarray(x) for x in d["__call__"])
+        for head in sorted(k for k in inter if k == "bbox_head" or k.startswith("cascade_head")):
+            for n in _FC_NAMES:
+                out.setdefault(f"{head}/{n}", []).extend(
+                    np.asarray(x) for x in inter[head][n]["__call__"])
     return out
+
+
+def _port_heads(port):
+    """(JAX head name, port bbox head) of every bbox head of ``port``: the
+    task head, or a cascade's stages."""
+    heads = port._bbox_heads()
+    if len(heads) == 1 and port.roi_head.bbox_head is heads[0]:
+        return [("bbox_head", heads[0])]
+    return [(f"cascade_head{i}", h) for i, h in enumerate(heads)]
 
 
 class PortReluInputs:
@@ -227,9 +240,16 @@ class PortReluInputs:
                 hooks.append(blk.register_forward_hook(
                     lambda m, a, y, k=key, s=seen, ds=blk.downsample is not None: self._add(
                         f"{k}/relu3", s["y3"] + (s["ident"] if ds else s["x"]))))
-        for n, fc in zip(_FC_NAMES, self.port.bbox_head.shared_fcs):
-            hooks.append(fc.register_forward_hook(
-                lambda m, a, y, n=n: self._add(f"bbox_head/{n}", y)))
+        if hasattr(self.port.roi_head, "mask_head"):
+            mh = self.port.roi_head.mask_head
+            for name, m in [(f"mask_conv{i}", c.conv) for i, c in enumerate(mh.convs)] + [
+                    ("upsample", mh.upsample)]:
+                hooks.append(m.register_forward_hook(
+                    lambda m, a, y, k=f"mask_head/{name}": self._add(k, y)))
+        for head, bbox_head in _port_heads(self.port):
+            for n, fc in zip(_FC_NAMES, bbox_head.shared_fcs):
+                hooks.append(fc.register_forward_hook(
+                    lambda m, a, y, k=f"{head}/{n}": self._add(k, y)))
         self.hooks = hooks
         return self
 
@@ -279,9 +299,17 @@ def flip_slack(flips, name):
     for key, (n, positions) in flips.items():
         if not n:
             continue
-        if key.startswith("bbox_head/"):
-            fcs = ("roi_head.bbox_head.shared_fcs.0.",) + (
-                ("roi_head.bbox_head.shared_fcs.1.",) if key.endswith("fc2") else ())
+        if key.startswith("mask_head/"):
+            # the convs up to this ReLU's (the upsample's: all of them)
+            last = int(key[19:]) if key.startswith("mask_head/mask_conv") else 99
+            mine = (name.startswith("roi_head.mask_head.upsample.") and last == 99) or (
+                name.startswith("roi_head.mask_head.convs.") and int(name.split(".")[3]) <= last)
+            upstream = name.startswith(("backbone.", "neck.")) or mine
+        elif "_head" in key.split("/")[0]:
+            head = key.split("/")[0]
+            pre = "roi_head.bbox_head." + ("" if head == "bbox_head" else f"{head[12:]}.")
+            fcs = (f"{pre}shared_fcs.0.",) + (
+                (f"{pre}shared_fcs.1.",) if key.endswith("fc2") else ())
             upstream = name.startswith(("backbone.", "neck.") + fcs)
         else:
             blk = key.split("/")[0][5:].split("_")
@@ -290,3 +318,128 @@ def flip_slack(flips, name):
         if upstream:
             slack += 2.0 * n / np.sqrt(positions)
     return slack
+
+
+# the model zoo's configs (tests/test_torch_zoo.py, test_torch_mask.py)
+MODELS = "cl_faster_rcnn_cfgs/_base_/models"
+ZOO_SMALL = dict(
+    backbone_blocks=(1, 1, 1, 1),
+    rpn_nms_pre=64,
+    rpn_max_per_img=32,
+    rcnn_num=16,
+    max_per_img=8,
+    use_approx_topk=False,
+    roi_align_mode="gather",
+)
+
+
+def zoo_jax_and_port(config_file, num_classes=4, image_hw=(64, 64), seed=0, **overrides):
+    """(JAX model, JAX variables, port model, port config) of one
+    ``_base_/models`` config built by both packages' model zoos at the
+    ZOO_SMALL size, with the same perturbed weights through the bridge
+    (the JAX init compiled, as ``jax_and_port(jit_init=True)``)."""
+    from nsgp_repre_tpu.models.zoo import build_detector as jax_build_detector
+    from nsgp_repre_tpu.utils.config import load_config as jax_load_config
+    from nsgp_repre_tpu_torch.models.zoo import build_config
+
+    model_cfg = jax_load_config(f"{MODELS}/{config_file}")["model"]
+    kw = dict(ZOO_SMALL, **overrides)
+    model, _ = jax_build_detector(model_cfg, num_classes=num_classes, **kw)
+    variables = jax.jit(model.init)(
+        jax.random.PRNGKey(seed), jnp.zeros((1,) + tuple(image_hw) + (3,), jnp.float32))
+    params_flat, stats_flat = perturb(
+        _flatten_tree(variables["params"]), _flatten_tree(variables["batch_stats"]), seed)
+    variables = {
+        "params": restore_into(variables["params"], params_flat),
+        "batch_stats": restore_into(variables["batch_stats"], stats_flat),
+    }
+    cls, cfg = build_config(model_cfg, num_classes, **kw)
+    port = cls(cfg)
+    port.load_state_dict(state_dict_from_jax(params_flat, stats_flat), strict=True)
+    return model, variables, port.eval(), cfg
+
+
+def _uniform_per_image(key, batch_size, n):
+    """A sampler's draws from one key: split per image, u from each key
+    and u2 from fold_in(key, 1) (samplers.py:97-100 in JAX)."""
+    keys = jax.random.split(key, batch_size)
+    u = np.stack([np.asarray(jax.random.uniform(k, (n,))) for k in keys])
+    u2 = np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(k, 1), (n,))) for k in keys])
+    return torch.from_numpy(u), torch.from_numpy(u2)
+
+
+def zoo_priorities(kind, rng, cfg, batch_size, hw, gt_slots, n_proposals=None):
+    """The port's sampling priorities for one JAX loss key of a model-zoo
+    family (``kind``: the port class name), in the order the JAX family
+    splits its key: RPN hands it to the RPN whole; Fast R-CNN to the RoI
+    sampler whole (``n_proposals`` external proposals); Faster and Mask
+    R-CNN split it in two (RPN, RoI head); the cascade splits it into
+    num_stages + 1 (RPN, then each stage), and the cascade with a mask
+    head first splits it in two (the cascade's, the mask sample's)."""
+    A = cfg.num_base_priors
+    N = sum(-(-hw[0] // s) * -(-hw[1] // s) * A for s in cfg.anchor_strides)
+    rpn = lambda k: _uniform_per_image(k, batch_size, N)[0]  # noqa: E731
+    if kind == "RPN":
+        return {"rpn": rpn(rng)}
+    if kind == "FastRCNN":
+        u, u2 = _uniform_per_image(rng, batch_size, gt_slots + n_proposals)
+        return {"roi": u, "roi2": u2}
+    if kind in ("FasterRCNN", "MaskRCNN"):
+        k1, k2 = jax.random.split(rng)
+        u, u2 = _uniform_per_image(k2, batch_size, gt_slots + cfg.rpn_max_per_img)
+        return {"rpn": rpn(k1), "roi": u, "roi2": u2}
+    out = {}
+    if kind == "CascadeMaskRCNN":
+        rng, k_mask = jax.random.split(rng)
+        out["mask"], out["mask_2"] = _uniform_per_image(
+            k_mask, batch_size, gt_slots + cfg.rpn_max_per_img)
+    keys = jax.random.split(rng, cfg.num_stages + 1)
+    out["rpn"] = rpn(keys[0])
+    for i in range(cfg.num_stages):
+        n = gt_slots + (cfg.rpn_max_per_img if i == 0 else cfg.rcnn_num)
+        out[f"s{i}"], out[f"s{i}_2"] = _uniform_per_image(keys[i + 1], batch_size, n)
+    return out
+
+
+def family_loss_runs(model, variables, port, jb, tb, rng, priorities, jax_args=(), port_kw=None):
+    """One family's loss terms and every gradient on both sides, with the
+    ReLU inputs both record: the JAX loss compiled once
+    (value_and_grad), the port's loss and backward. JAX calls the trunk
+    more than once where it recomputes features (the cascade with a mask
+    head does, cascade.py:364): its calls beyond the port's must repeat
+    the port's and are dropped. Returns a dict of jax_losses, losses,
+    jax_grads (port names), grads and flips."""
+    from nsgp_repre_tpu.engine.train import total_loss as jax_total_loss
+
+    def loss_fn(p):
+        losses, st = model.apply({"params": p, "batch_stats": variables["batch_stats"]}, jb, rng,
+                                 *jax_args, method=model.loss,
+                                 capture_intermediates=capture_relu_inputs,
+                                 mutable=["intermediates"])
+        return jax_total_loss(losses), (losses, st["intermediates"])
+
+    shapes = {k: tuple(v.shape) for k, v in priorities.items()}
+    if not port_kw:  # given proposals set their own draw size
+        # JAX's key splits give the draws the port family reports it reads
+        assert shapes == port.priority_shapes(*tb.gt.boxes.shape[:2],
+                                              shapes.get("rpn", (0, 0))[1]), shapes
+    (_, (jl, inter)), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+    port.zero_grad(set_to_none=True)
+    with PortReluInputs(port) as rec:
+        tl = port.loss(tb, priorities=priorities, **(port_kw or {}))
+    sum(v for k, v in tl.items() if "loss" in k).backward()
+    jin = jax_relu_inputs([inter])
+    for k, calls in jin.items():
+        n = len(rec.out.get(k, []))
+        if len(calls) > n:
+            assert len(calls) % n == 0, k
+            for extra in range(n, len(calls)):
+                np.testing.assert_array_equal(calls[extra], calls[extra % n], err_msg=k)
+            jin[k] = calls[:n]
+    ref = {k: v.numpy() for k, v in
+           state_dict_from_jax(_flatten_tree(jax.device_get(jg)), {}).items()}
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+             for n, p in port.named_parameters()}
+    return dict(jax_losses={k: float(v) for k, v in jl.items()},
+                losses={k: float(v.detach()) for k, v in tl.items()},
+                jax_grads=ref, grads=grads, flips=relu_flips(jin, rec.out))
