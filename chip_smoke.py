@@ -87,11 +87,33 @@ Phases, each of which raises on a failed check (exit code 1):
    each: RPN and Fast R-CNN predict, the 15+5 config's predict with
    soft-NMS and its proposals with the matrix NMS (the kernel's keep
    lists), and DetInferencer on demo/demo.jpg with its drawing; step,
-   predict times, peak memory and launches per path.
+   predict times, peak memory and launches per path;
+10. model zoo, the rest (the single-stage and caffe C4/DC5 families): the
+   kernels at their shapes against their plain versions, two calls bit
+   for bit, with times, bounds and library times (rpn_head at the C4 and
+   DC5 widths, C = F = 1024 and 2048 with 15 anchors, P = 75, on the
+   800x1344 canvas's 50x84 stride-16 map, bf16 at batch 1 and 2 and f32
+   at batch 2; RoIAlign forward and backward on 2 x 512 RoIs of that one
+   level at 14x14, C = 1024 (C4) and 7x7, C = 2048 (DC5); NMS at
+   RetinaNet's (2 x 5,000) and SSD300's (8 x 5,320) multiclass calls and
+   the C4 train step's proposals (2 x 12,000, 2,000 kept); the assignment
+   over the level's 63,000 anchors); then RetinaNet, SSD300, Faster R-CNN
+   C4 and DC5, Mask R-CNN C4 and RPN-C4 built by ``build_detector`` from their
+   cl_faster_rcnn_cfgs/_base_/models/ files at full width and depth (80
+   classes), seeded and conditioned weights, bf16, batch 2 of the COCO
+   batch (SSD300: 8 seeded 300x300 images): 3 train steps after a
+   warm-up (launches counted, finite terms), predict at batch 1 and 2
+   (launches counted), the f32 batch-1 loss terms card against CPU within
+   1e-3 (the two-stage families' on the card's proposals; the C4 heads'
+   f32 pair keeps 100 proposals, as the CPU runs res5 on each), f32
+   detections matched >= 95% and Mask R-CNN C4's probabilities on the
+   card's boxes within 1e-3; step, predict times, peak memory, a profile
+   of each path.
 
-The last lines are the card line, one JSON object listing the kernels,
-and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
-a checkout of the repository, it exits with code 2 and prints no result.
+The last lines are one JSON object with the whole run's seconds, the card
+line, one JSON object listing the kernels, and ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or outside a checkout of the repository,
+it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -659,8 +681,9 @@ def condition_weights(torch, model, images_batch):
         model.extract_feat(normalize_images(images_batch))
         for h in hooks:
             h.remove()
-        model.rpn_head.rpn_cls.weight.mul_(20.0)
-        for head in model._bbox_heads():
+        if hasattr(model, "rpn_head"):
+            model.rpn_head.rpn_cls.weight.mul_(20.0)
+        for head in model._bbox_heads() if hasattr(model, "_bbox_heads") else []:
             for fc in head.fc_cls:
                 fc.weight.mul_(10.0)
 
@@ -2413,7 +2436,487 @@ def zoo_phase(torch, dev, card: str, state):
     return results, paths
 
 
+# ---------------------------------------------------------------------------
+# model-zoo phase, the rest: single-stage and caffe C4/DC5 families
+# ---------------------------------------------------------------------------
+
+# (class, config, batch): RetinaNet and the C4/DC5 families on the COCO
+# batch, SSD300 on 8 images of 300x300
+REST = (("RetinaNet", "retinanet_r50_fpn.py"), ("SSD", "ssd300.py"),
+        ("FasterRCNNC4", "faster-rcnn_r50-caffe-c4.py"),
+        ("FasterRCNNDC5", "faster-rcnn_r50-caffe-dc5.py"),
+        ("MaskRCNNC4", "mask-rcnn_r50-caffe-c4.py"), ("RPNC4", "rpn_r50-caffe-c4.py"))
+SSD_HW = (300, 300)
+SSD_BATCH = 8
+C4_LEVEL = (-(-COCO_CANVAS[0] // 16), -(-COCO_CANVAS[1] // 16))  # the stride-16 map, 50x84
+C4_A = 15  # anchors per location: 3 ratios x scales 2-32
+C4_F32_PROPOSALS = 100  # the C4 heads' f32 card-vs-CPU pair (the CPU's res5 bounds its time)
+
+
+def rest_expected(kind, path):
+    """Launches of one call of each path, as the JAX code implies them: a
+    single-stage train step runs no kernel (plain MaxIoU assignment, no
+    proposals), its predict one class-aware NMS; the C4/DC5 train step the
+    fused RPN head on the one level, the assignment, proposal NMS and one
+    RoIAlign forward and backward (RPN-C4: no RoI head); their predict the
+    fused head at batch 1 only, proposal and multiclass NMS (RPN-C4:
+    proposals only) and one RoIAlign (Mask R-CNN C4: two, boxes then
+    masks; its train step shares one between the box and mask heads)."""
+    if kind in ("RetinaNet", "SSD"):
+        return zoo_launches(nms=0 if path == "train" else 1)
+    rois = 0 if kind == "RPNC4" else 1
+    if path == "train":  # Mask R-CNN C4's mask head shares the box head's RoIs
+        return zoo_launches(rpn_head=1, assign=1, nms=1, roi_align=rois, roi_align_bwd=rois)
+    return zoo_launches(rpn_head=1 if path == "predict1" else 0,
+                        nms=1 if kind == "RPNC4" else 2,
+                        roi_align=2 if kind == "MaskRCNNC4" else rois)
+
+
+def ssd_batch(torch, n: int, seed: int):
+    """``n`` seeded 300x300 images with 5 and 8 seeded boxes of the 80
+    classes in COCO_GT slots, on the CPU."""
+    import numpy as np
+
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
+
+    b = demo_det_batch(n, *SSD_HW, num_instances=(5, 8), num_classes=80, gt_capacity=COCO_GT,
+                       seed=seed)
+    return b.replace(images=torch.from_numpy(np.stack(seeded_images(n, seed, SSD_HW))))
+
+
+def condition_rest(torch, model, images_batch):
+    """condition_weights, and what the families' heads need for scores that
+    separate: the C4 head's classifier scaled up; RetinaNet's towers at
+    He scale (N(0, 0.01) shrinks each 3x3 of 2,304 inputs by half, and
+    every score would sit at the prior's 0.01, under the 0.05 threshold):
+    the logits spread ~0.5 around the prior -4.6, so a few thousand of an
+    image's 16M scores pass the threshold while the bf16 steps stay
+    finite (class biases spread over [-3, 0] instead diverged at the
+    third step)."""
+    condition_weights(torch, model, images_batch)
+    with torch.no_grad():
+        head = getattr(model, "bbox_head", None)
+        if hasattr(head, "retina_cls"):
+            for m in list(head.cls_convs) + list(head.reg_convs):
+                m.conv.weight.mul_(3.0)
+        elif head is not None and not hasattr(head, "shared_fcs") and hasattr(head, "fc_cls"):
+            head.fc_cls.weight.mul_(10.0)
+
+
+def check_rest_dets(torch, label, dets, batch_size, max_per_img, hw, score_thr, mask_size=None):
+    """Padded detections: finite, scores in (score_thr, 1], boxes inside the
+    image, some detections; masks (B, max_per_img, M, M) probabilities."""
+    check(label, dets.boxes.shape == (batch_size, max_per_img, 4), tuple(dets.boxes.shape))
+    v = dets.valid
+    b, s = dets.boxes[v], dets.scores[v]
+    check(label, bool(torch.isfinite(b).all() and torch.isfinite(s).all()), "non-finite output")
+    check(label, bool(((s > score_thr) & (s <= 1.0)).all()), f"score outside ({score_thr}, 1]")
+    H, W = hw
+    check(label, bool((b[:, 0::2] >= 0).all() and (b[:, 0::2] <= W).all()
+                      and (b[:, 1::2] >= 0).all() and (b[:, 1::2] <= H).all()), "box off the image")
+    check(label, int(v.sum()) > 0, "no detections")
+    if mask_size:
+        m = dets.masks
+        check(label, tuple(m.shape) == (batch_size, max_per_img, mask_size, mask_size),
+              tuple(m.shape))
+        check(label, bool(torch.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()),
+              "mask probabilities outside [0, 1]")
+    return int(v.sum())
+
+
+def rest_kernel_phase(torch, dev):
+    """The kernels at the rest of the zoo's shapes against their plain
+    versions, two calls bit for bit, with times and bounds: rpn_head at the
+    C4 (C = F = 1024) and DC5 (C = F = 2048) heads, 15 anchors (P = 75), on
+    the 800x1344 canvas's 50x84 stride-16 map at batch 2 (bf16 and f32)
+    and batch 1 (bf16); RoIAlign forward and backward on 2 x 512 RoIs of
+    that one level at the C4 head's 14x14, C = 1024, and the DC5 head's
+    7x7, C = 2048 (bf16 and f32); NMS at RetinaNet's multiclass call (2
+    images x 5 levels x 1,000 candidates, 100 kept), SSD300's (8 x 5,320,
+    200 kept) and the C4 train step's proposal call (2 x 12,000, 2,000
+    kept); the assignment over the level's 63,000 anchors."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from nsgp_repre_tpu_torch.ops import (_ext, assign_cuda, nms, nms_cuda, roi_align,
+                                          roi_align_cuda)
+    from nsgp_repre_tpu_torch.ops import rpn_head_cuda as rh
+    from nsgp_repre_tpu_torch.ops.anchors import AnchorGenerator
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    B = COCO_BATCH
+    results = {}
+
+    # ---- rpn_head at the C4 and DC5 widths ----
+    P = 5 * C4_A
+    for name, Cw in (("c4", 1024), ("dc5", 2048)):
+        w = torch.randn(3, 3, Cw, Cw, generator=g) / (9 * Cw) ** 0.5
+        b = torch.randn(Cw, generator=g) * 0.1
+        wcr = torch.randn(Cw, P, generator=g) / Cw ** 0.5
+        bcr = torch.randn(P, generator=g) * 0.1
+        x32 = torch.randn(B, *C4_LEVEL, Cw, generator=g)
+        wd, bd, wcrd, bcrd = w.to(dev), b.to(dev), wcr.to(dev), bcr.to(dev)
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            size = 2 if dt == torch.bfloat16 else 4
+            for batch in ((1, B) if dt == torch.bfloat16 else (B,)):
+                x = x32[:batch].to(dev, dt)
+                run = lambda: rh.rpn_head(x, wd, bd, wcrd, bcrd)  # noqa: E731
+                plain = lambda: rh.rpn_head_plain(x, wd, bd, wcrd, bcrd)  # noqa: E731
+                got, again, ref = run(), run(), plain()
+                torch.cuda.synchronize()
+                same = torch.equal(got, again)
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                if dt == torch.float32:
+                    # the same f32 products over K = 9 x C summed in another order
+                    tol, tol_desc = 1e-4 * max(1.0, scale), "1e-4 * max(1, max|plain|)"
+                else:
+                    # both round the conv sum, the bias and the 1x1 sum to bf16 at
+                    # the same points; another order can flip a rounding
+                    tol, tol_desc = 2 ** -6 * scale, "2**-6 * max|plain|"
+                label = f"rpn_head {dt_name} {name} batch {batch}"
+                check(label, err <= tol, f"max_abs_err {err} > {tol_desc}")
+                check(label, same, "two calls of the kernel differ")
+                del got, again, ref
+                M = batch * C4_LEVEL[0] * C4_LEVEL[1]
+                flops = 2 * M * (9 * Cw * Cw + Cw * P)
+                nbytes = M * Cw * size + M * P * size + 9 * Cw * Cw * size + Cw * 4 \
+                    + Cw * P * size + P * 4
+                bms, bby = bound(nbytes, flops, dt_name)
+                w_oihw = wd.permute(3, 2, 0, 1).to(dt).contiguous()
+                wcr_oihw = wcrd.t().reshape(P, Cw, 1, 1).to(dt).contiguous()
+                xc = x.permute(0, 3, 1, 2)
+
+                def library():
+                    return F.conv2d(torch.relu(F.conv2d(xc, w_oihw, bd.to(dt), padding=1)),
+                                    wcr_oihw, bcrd.to(dt))
+
+                entry = dict(kernel="rpn_head", dtype=dt_name, case=f"{name} head", batch=batch,
+                             C=Cw, F=Cw, P=P, level=list(C4_LEVEL), max_abs_err=err,
+                             tol=tol_desc, bit_identical_reruns=same, launches=1,
+                             kernel_ms=time_ms(torch, run, 10), device_ms=device_ms(torch, run, 5),
+                             plain_ms=time_ms(torch, plain, 3, warmup=1),
+                             library_ms=time_ms(torch, library, 10),
+                             library_device_ms=device_ms(torch, library, 5),
+                             library_call="F.conv2d 3x3 + relu + F.conv2d 1x1",
+                             bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+                log(entry)
+                results[("rpn_head", dt_name, f"{name}_b{batch}")] = entry
+        del x32, wd, bd, wcrd, bcrd
+    torch.cuda.empty_cache()
+
+    # ---- RoIAlign forward and backward on the one stride-16 level: the C4
+    # head's 14x14 at C = 1024, the DC5 head's 7x7 at C = 2048 ----
+    rois, bidx = sampler_like_boxes(torch, g, B, 512, canvas=COCO_CANVAS)
+    rois, bidx = rois.to(dev), bidx.to(dev)
+    R, strides = rois.shape[0], (16,)
+    level_rows = B * C4_LEVEL[0] * C4_LEVEL[1]
+    for case, head, O, Cr in (("c4_14", "C4", MASK_OUT, 1024), ("dc5_7", "DC5", 7, 2048)):
+        lin, wts = roi_align.sample_taps([C4_LEVEL], B, rois, bidx, strides, output_size=O)
+        rows_touched = int(torch.unique(lin[wts != 0]).numel())
+        del lin, wts
+        feat32 = torch.randn(B, *C4_LEVEL, Cr, generator=g).to(dev)
+        g32 = torch.randn(R, O, O, Cr, generator=g).to(dev)
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            size = 2 if dt == torch.bfloat16 else 4
+            feats, gout = [feat32.to(dt)], g32.to(dt)
+            fwd = lambda: roi_align_cuda.multilevel_roi_align(  # noqa: E731
+                feats, rois, bidx, strides=strides, output_size=O)
+            fwd_plain = lambda: roi_align.multilevel_roi_align(  # noqa: E731
+                feats, rois, bidx, strides=strides, output_size=O)
+            bwd = lambda: roi_align_cuda.multilevel_roi_align_backward(  # noqa: E731
+                gout, rois, bidx, [C4_LEVEL], B, dt, strides=strides, output_size=O)
+            bwd_plain = lambda: roi_align.multilevel_roi_align_backward(  # noqa: E731
+                gout, rois, bidx, [C4_LEVEL], B, dt, strides=strides, output_size=O)
+            for name, run, plain in (("roi_align", fwd, fwd_plain),
+                                     ("roi_align_bwd", bwd, bwd_plain)):
+                got, again, ref = run(), run(), plain()
+                torch.cuda.synchronize()
+                if name == "roi_align":
+                    got, again, ref = [got], [again], [ref.to(dt)]
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
+                scale = max(y.float().abs().max().item() for y in ref)
+                del got, again, ref
+                if dt == torch.float32:
+                    tol, tol_desc = 1e-5 * max(1.0, scale), "1e-5 * max(1, max|plain|)"
+                else:
+                    tol, tol_desc = 2 ** -7 * scale, "2**-7 * max|plain|"
+                label = f"{name} {dt_name} {O}x{O} one level C={Cr}"
+                check(label, err <= tol, f"max_abs_err {err} > {tol_desc}")
+                check(label, same, "two calls of the kernel differ")
+                flops = R * O * O * 4 * 9 * Cr + R * O * O * Cr
+                nbytes = R * O * O * Cr * size + R * 20 + (
+                    rows_touched if name == "roi_align" else level_rows) * Cr * size
+                bms, bby = bound(nbytes, flops, dt_name)
+                entry = dict(kernel=name, dtype=dt_name,
+                             case=f"{head} head {O}x{O}, one stride-16 level",
+                             R=R, C=Cr, max_abs_err=err, tol=tol_desc, bit_identical_reruns=same,
+                             kernel_ms=time_ms(torch, run, 10), device_ms=device_ms(torch, run, 5),
+                             plain_ms=time_ms(torch, plain, 2, warmup=1), library_ms=None,
+                             bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+                log(entry)
+                results[(name, dt_name, case)] = entry
+            del feats, gout
+        del feat32, g32
+        torch.cuda.empty_cache()
+
+    # ---- NMS at RetinaNet's and SSD's multiclass calls ----
+    for key, nb, n, canvas, thr, max_out, score_thr in (
+            ("retina", B, 5 * 1000, COCO_CANVAS, 0.5, 100, 0.05),
+            ("ssd", SSD_BATCH, 5 * 1000 + 320, SSD_HW, 0.45, 200, 0.02)):
+        boxes = proposal_like_boxes(torch, g, nb * n, canvas).reshape(nb, n, 4).to(dev)
+        s = torch.sigmoid(torch.randn(nb, n, generator=g) * 2 - 2).to(torch.bfloat16).float().to(dev)
+        labels = torch.randint(0, 80, (nb, n), generator=g, dtype=torch.int32).to(dev)
+        valid = s > score_thr
+        shifted = nms.offset_boxes(boxes, labels, valid)
+        entry = nms_case(torch, nms, nms_cuda, shifted, s, valid, thr, max_out,
+                         f"{key} predict multiclass, {nb} x {n:,}")
+        entry["plain_ms"] = time_ms(torch, lambda: nms.nms(shifted, s, valid, thr, max_out), 2,
+                                    warmup=1)
+        results[("nms", "float32", key)] = entry
+        del boxes, s, labels, valid, shifted
+
+    # ---- NMS at the C4 train step's proposal call: 12,000 per image, 2,000 kept ----
+    n, keep = 12_000, 2_000
+    boxes = proposal_like_boxes(torch, g, B * n, COCO_CANVAS).reshape(B, n, 4).to(dev)
+    s = torch.sigmoid(torch.randn(B, n, generator=g) * 2).to(torch.bfloat16).float().to(dev)
+    labels = torch.zeros((B, n), dtype=torch.int32, device=dev)  # one level: one group
+    valid = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
+    shifted = nms.offset_boxes(boxes, labels, valid)
+    entry = nms_case(torch, nms, nms_cuda, shifted, s, valid, 0.7, keep,
+                     f"C4 train proposals, {B} x {n:,}, {keep:,} kept")
+    entry["plain_ms"] = time_ms(torch, lambda: nms.nms(shifted, s, valid, 0.7, keep), 2, warmup=1)
+    results[("nms", "float32", "c4_proposals")] = entry
+    del boxes, s, labels, valid, shifted
+
+    # ---- anchor assignment over the C4 level's 63,000 anchors ----
+    gen = AnchorGenerator(strides=(16,), scales=(2.0, 4.0, 8.0, 16.0, 32.0))
+    anchors = torch.from_numpy(np.concatenate(gen.grid_anchors([C4_LEVEL]))).to(dev)
+    N = anchors.shape[0]
+    check("c4 anchors", N == 63_000, N)
+    G = COCO_GT
+    n_valid = torch.tensor([5, 8])
+    gt_valid = (torch.arange(G)[None] < n_valid[:, None]).to(dev)
+    prior_valid = (torch.rand(B, N, generator=g) > 0.02).to(dev)
+    gt = proposal_like_boxes(torch, g, B * G, COCO_CANVAS).reshape(B, G, 4).to(dev)
+    gt[:, 1] = gt[:, 0]  # a duplicated gt: argmax and claim ties
+    gt[:, 2] = anchors[N // 2:N // 2 + B]  # a gt equal to an anchor (IoU exactly 1)
+    args = (anchors, gt, gt_valid, prior_valid, 0.7, 0.3, 0.3)
+    run = lambda: assign_cuda.rpn_assign_targets(*args)  # noqa: E731
+    got, again = run(), run()
+    ref = assign_cuda.rpn_assign_targets_plain(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+    tgt_err = (got[2] - ref[2]).abs().max().item()
+    check("assign 63,000 anchors", same, "assigned or max_overlaps differ from the plain version")
+    check("assign 63,000 anchors", rerun, "two calls of the kernel differ")
+    check("assign 63,000 anchors targets", tgt_err <= 1e-5 * max(1.0, ref[2].abs().max().item()),
+          f"tgt max_abs_err {tgt_err}")
+    V = int(n_valid.sum())
+    flops = V * N * (2 * IOU_FLOPS + 3) + B * N * 16
+    nbytes = N * 16 + B * G * 17 + B * N * 1 + B * N * (4 + 4 + 16)
+    bms, bby = bound(nbytes, flops, "float32")
+    entry = dict(kernel="assign", dtype="float32", case="C4 level of the 800x1344 canvas",
+                 anchors=N, batch=B, gt_slots=G, valid_gts=V, positives=int((got[0] >= 0).sum()),
+                 identical_assigned_and_max_overlaps=same, bit_identical_reruns=rerun,
+                 max_abs_err=tgt_err, kernel_ms=time_ms(torch, run, 20),
+                 device_ms=device_ms(torch, run, 10),
+                 plain_ms=time_ms(torch, lambda: assign_cuda.rpn_assign_targets_plain(*args), 3),
+                 library_ms=None, bound_ms=bms, bound_by=bby, bytes=nbytes, flops=flops)
+    log(entry)
+    results[("assign", "float32", "c4")] = entry
+    del anchors, got, again, ref
+    torch.cuda.empty_cache()
+    _ext.reset_launches()  # comparison launches are not main-path launches
+    return results
+
+
+def rest_family_phase(torch, dev, card: str, kind: str, config_file: str, batch, hw, paths):
+    """One family at full width (80 classes, the config's trunk and heads,
+    seeded and conditioned weights): bf16 train steps (a warm-up, then 3
+    timed, one SGD update each at the schedule's first lr), bf16 predict at
+    batch 1 and 2, launches per path; the f32 batch-1 loss terms card
+    against CPU (a two-stage family's RoI losses on the card's proposals;
+    1e-3 relative, acc 2/rcnn_num) and the f32 detections card against
+    CPU (>= 95% matched; Mask R-CNN C4's probabilities on the card's
+    detections within 1e-3); the C4 heads' f32 pair keeps
+    C4_F32_PROPOSALS proposals, as the CPU runs res5 on each."""
+    import gc
+    import math
+
+    from nsgp_repre_tpu_torch.engine.train import (make_eval_step, normalize_images, total_loss,
+                                                   trainable_mask)
+    from nsgp_repre_tpu_torch.models.zoo import build_detector
+    from nsgp_repre_tpu_torch.testing import draw_priorities, split_losses
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    model_cfg = load_config(f"{MODELS}/{config_file}")["model"]
+    masks = kind == "MaskRCNNC4"
+    two_stage = kind not in ("RetinaNet", "SSD")
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, cfg = build_detector(model_cfg, compute_dtype="bfloat16", device=dev, seed=SEED)
+    check(kind, type(model).__name__ == kind and cfg.num_classes == 80, type(model).__name__)
+    condition_rest(torch, model, batch.images[:1].to(dev))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    build_s = time.perf_counter() - t0
+    B = batch.images.shape[0]
+
+    # ---- bf16 train steps ----
+    mask = trainable_mask(model, cfg)
+    for n, p in model.named_parameters():
+        p.requires_grad_(mask[n])
+    opt = torch.optim.SGD([p for p in model.parameters() if p.requires_grad], lr=2e-5,
+                          momentum=0.9, weight_decay=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bc = batch.to(dev)
+    bn = bc.replace(images=normalize_images(bc.images))
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        losses = model.loss(bn, generator=gen)
+        total_loss(losses).backward()
+        opt.step()
+        return {k: float(v.detach()) for k, v in losses.items()}
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, launches = [], None, None
+    for i in range(3):
+        t1 = time.perf_counter()
+        losses, launches = run_path(torch, f"{kind} train step {i}", rest_expected(kind, "train"),
+                                    step)
+        times.append((time.perf_counter() - t1) * 1e3)
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        check(f"{kind} train step {i}", not bad, f"non-finite {bad}")
+    check(f"{kind} train", ("loss_mask" in losses) == masks, sorted(losses))
+    train_peak = torch.cuda.max_memory_allocated()
+    paths[f"{kind}_train_step"] = launches
+    profile_call(torch, step, f"{kind} train bf16 batch {B} (one step)")
+    del opt
+    model.load_state_dict(state)
+    model.eval()
+    for p in model.parameters():
+        p.grad = None
+
+    # ---- bf16 predict, batch 1 and 2 ----
+    eval_step = make_eval_step(model)
+    max_per = cfg.rpn_max_per_img if kind == "RPNC4" else cfg.max_per_img
+    score_thr = -1.0 if kind == "RPNC4" else cfg.score_thr  # proposals: any score in [0, 1]
+    pred = {}
+    for pb in (1, 2):
+        bb = first_images(bc, pb)
+        eval_step(bb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dets, launches = run_path(torch, f"{kind} predict batch {pb}",
+                                  rest_expected(kind, f"predict{pb}"), lambda: eval_step(bb))
+        paths[f"{kind}_predict_batch{pb}"] = launches
+        n_dets = check_rest_dets(torch, f"{kind} bf16 predict batch {pb}", dets, pb, max_per, hw,
+                                 score_thr, 14 if masks else None)
+        ms = host_ms(torch, lambda: eval_step(bb), 3)
+        pred[pb] = {"detections": n_dets, "ms_median": statistics.median(ms), "ms_all": ms,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        profile_call(torch, lambda: eval_step(bb), f"{kind} predict bf16 batch {pb}")
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+    # ---- f32 batch 1: loss terms and detections, card against CPU ----
+    # the res5 head costs the CPU ~1.5 GFLOP a RoI: the C4 heads' f32 pair
+    # keeps 100 proposals (of 2,000), so that the CPU runs res5 on ~200
+    # RoIs (the loss's sample and predict's proposals), not ~2,500
+    f32_kw = {"rpn_max_per_img": C4_F32_PROPOSALS} if kind in ("FasterRCNNC4", "MaskRCNNC4") else {}
+    m32, _ = build_detector(model_cfg, device=dev, seed=SEED, **f32_kw)
+    m32.load_state_dict(state)
+    c32, _ = build_detector(model_cfg, device="cpu", seed=SEED, **f32_kw)
+    c32.load_state_dict(state)
+    b1 = first_images(batch)
+    b1c = b1.to(dev)
+    b1n = b1.replace(images=normalize_images(b1.images))
+    t1 = time.perf_counter()
+    # the draws the family's loss reads (none for RetinaNet and SSD)
+    pri = draw_priorities(c32, 1, C4_LEVEL[0] * C4_LEVEL[1] * C4_A, COCO_GT,
+                          torch.Generator().manual_seed(SEED + 4))
+    with torch.no_grad():
+        card_dets = m32.predict(b1c.replace(images=normalize_images(b1c.images)))
+        if two_stage and kind != "RPNC4":
+            got_l, props = split_losses(m32, b1, pri)
+            # split_losses on the CPU with its features kept: the RPN
+            # losses and the CPU's proposals, then the RoI losses on the
+            # card's proposals; the CPU's predict goes on from the same
+            # features and its own proposals (batch 1: predict's RPN head
+            # is the sparse-loss step's, the fused one, so its proposals
+            # are these), the trunk and the RPN head run once
+            feats = c32.extract_feat(b1n.images)
+            rpn_l, cpu_props = c32.rpn_loss_and_proposals(
+                feats, b1n.gt, b1n.img_shape, with_loss=True, u=pri["rpn"])
+            roi_l = c32.roi_loss(feats, props.to("cpu"), b1n.gt, b1n.img_shape, pri)
+            ref_l = {k: float(v) for k, v in {**rpn_l, **roi_l}.items()}
+            cpu_dets = c32._predict_from_proposals(feats, cpu_props, b1n, True)
+            if masks:
+                cpu_dets = c32._predict_masks(feats, cpu_dets, b1n, True)
+        else:
+            got_l = {k: float(v) for k, v in m32.loss(
+                b1c.replace(images=normalize_images(b1c.images)),
+                priorities={k: v.to(dev) for k, v in pri.items()}).items()}
+            ref_l = {k: float(v) for k, v in c32.loss(b1n, priorities=pri).items()}
+            cpu_dets = c32.predict(b1n)
+    loss_rel = {k: abs(got_l[k] - ref_l[k])
+                / (1.0 if k.endswith("acc") else max(abs(ref_l[k]), 1e-3)) for k in ref_l}
+    for k, v in loss_rel.items():
+        lim = 2.0 / cfg.rcnn_num if k.endswith("acc") else 1e-3
+        check(f"{kind} f32 {k}", v <= lim, f"card {got_l[k]} cpu {ref_l[k]}")
+    frac = match_fraction(det_dict(card_dets, 0), det_dict(cpu_dets, 0))
+    check(f"{kind} f32 detections card vs cpu", frac >= 0.95, f"matched {frac:.3f} < 0.95")
+    mask_err = None
+    if masks:
+        with torch.no_grad():
+            on_card_boxes = c32._predict_masks(feats, card_dets.to("cpu"), b1n, True)
+        v = card_dets.valid[0].cpu()
+        mask_err = (card_dets.masks[0].cpu()[v] - on_card_boxes.masks[0][v]).abs().max().item()
+        check(f"{kind} f32 masks card vs cpu", mask_err <= 1e-3, f"max_abs_err {mask_err}")
+    check_s = time.perf_counter() - t1
+    del m32, c32
+    torch.cuda.empty_cache()
+    log({"phase": f"zoo {kind}", "card": card, "config": f"{MODELS}/{config_file}",
+         "seconds": time.perf_counter() - t0, "build_s": build_s, "image": list(hw), "batch": B,
+         f"train_bf16_batch{B}": {"step_ms_median": statistics.median(times), "step_ms_all": times,
+                                  "max_memory_allocated_bytes": train_peak,
+                                  "allocated_at_start_bytes": allocated_at_start,
+                                  "losses_last": losses, "launches": paths[f"{kind}_train_step"],
+                                  "measured": "host clock around loss, backward and SGD, "
+                                              "ending in torch.cuda.synchronize"},
+         "predict_bf16": {f"batch{pb}": dict(r, launches=paths[f"{kind}_predict_batch{pb}"])
+                          for pb, r in pred.items()},
+         "f32_batch1_card_vs_cpu": {"losses_card": got_l, "losses_cpu": ref_l,
+                                    "loss_rel_err": loss_rel, "detections_matched": frac,
+                                    "card_detections": int(card_dets.valid.sum()),
+                                    "cpu_detections": int(cpu_dets.valid.sum()),
+                                    "mask_prob_max_abs_err": mask_err, "seconds": check_s}})
+
+
+def zoo_rest_phase(torch, dev, card: str):
+    """Phase 10: the rest of the model zoo (see the module docstring)."""
+    t0 = time.perf_counter()
+    paths = {}
+    results = rest_kernel_phase(torch, dev)
+    log({"phase": "zoo, the rest: kernels", "seconds": time.perf_counter() - t0})
+    coco = coco_batch(torch, COCO_BATCH, SEED + 30, masks=True)
+    ssd = ssd_batch(torch, SSD_BATCH, SEED + 31)
+    for kind, config_file in REST:
+        batch, hw = (ssd, SSD_HW) if kind == "SSD" else (coco, COCO_HW)
+        rest_family_phase(torch, dev, card, kind, config_file, batch, hw, paths)
+    log({"phase": "zoo, the rest", "seconds": time.perf_counter() - t0})
+    return results, paths
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2462,8 +2965,10 @@ def main() -> int:
         eval_phase(card)
         zoo_results, zoo_paths = zoo_phase(torch, dev, card, state)
         results.update(zoo_results)
+        rest_results, rest_paths = zoo_rest_phase(torch, dev, card)
+        results.update(rest_results)
         by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain, **runs,
-                   **zoo_paths}
+                   **zoo_paths, **rest_paths}
 
         kernels = []
         for name in KERNELS:
@@ -2499,12 +3004,24 @@ def main() -> int:
                 and key[2] in ("mask14", "zoo80000", "coco")}
             if zoo:
                 kernels[-1]["zoo_shapes"] = zoo
+            # the rest of the zoo's shapes: rpn_head at the C4 and DC5 widths,
+            # RoIAlign at 14x14 on one stride-16 level, NMS at RetinaNet's and
+            # SSD's multiclass calls, the assignment over the C4 level
+            rest = {"/".join(key[1:]): {k: e[k] for k in (
+                "kernel_ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms", "bound_by", "max_abs_err") if k in e}
+                for key, e in results.items() if key[0] == name and len(key) == 3
+                and key[2] in ("c4_b1", "c4_b2", "dc5_b1", "dc5_b2", "c4_14", "dc5_7", "retina",
+                               "ssd", "c4_proposals", "c4")}
+            if rest:
+                kernels[-1]["zoo_rest_shapes"] = rest
             if "library_device_ms" in r:  # the conv kernels, also at batch 16
                 kernels[-1]["library_device_ms"] = r["library_device_ms"]
                 r16 = results[(name, "bfloat16", TRAIN_BATCH)]  # 16 images (the train step's rpn_head)
                 kernels[-1]["batch16"] = {k: r16[k] for k in (
                     "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms",
                     "max_abs_err")} | {"ms": r16["kernel_ms"]}
+        log({"phase": "whole run", "seconds": time.perf_counter() - t_run})
         log(card)
         log({"kernels": kernels})
     except Exception:  # noqa: BLE001 — any failed phase fails the run

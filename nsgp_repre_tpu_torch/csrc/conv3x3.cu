@@ -31,13 +31,22 @@
 //     producer to them), and release a stage once the product that read
 //     it has retired. The head writes its 128 x 256 hidden tile (bf16) to
 //     shared memory in the swizzled layout a wgmma A operand needs and
-//     runs the packed 1x1 as a second wgmma (m64n16k16 over K = 256), so
-//     the hidden map never reaches device memory. No split-K, no atomics:
-//     a call gives the same bits every time.
+//     runs the packed 1x1 as a second wgmma (m64nPNk16 over K = 256, PN =
+//     16 for P <= 16, else 128), so the hidden map never reaches device
+//     memory.
 //   * f32: the same GEMM on the CUDA cores (16-deep slices, 4x4 register
 //     tiles per thread), exact f32 products with f32 sums.
+// Hidden widths F > 256 (the C4 and DC5 heads: 1024 and 2048): the packed
+// 1x1 is linear over F, so blockIdx.y takes one 256-wide chunk of the
+// hidden vector, runs the conv and the 1x1 on that chunk alone and writes
+// its f32 partial 1x1 sums (F/256, pixels, P); a second launch adds the
+// partials in chunk order, then the bias, and rounds. F / 256 times as
+// many blocks fill the card where one block per pixel patch would leave a
+// third of it idle (C4 at batch 2: 84 patches for 132 SMs). No split-K of
+// the conv, no atomics: a call gives the same bits every time. At F = 256
+// there is one chunk and the block writes the output itself.
 // The TPU kernel pads its epilogue to 128 lanes; here it writes exactly
-// P = 5A columns (the wgmma product pads P to 16 inside shared memory).
+// P = 5A columns (the wgmma product pads P to PN inside shared memory).
 //
 // Rounding follows rpn_head_pallas.py:135 and :148-149: the conv sum is
 // rounded to the map's dtype, the bias (rounded to that dtype) is added
@@ -73,13 +82,14 @@ constexpr int SIMT_BK = 16;
 
 // BM pixels x BN output channels per block; each thread a TM x TN tile.
 // EPI: after the conv (+bias, ReLU) the BM x BN tile of hidden values is
-// kept in shared memory and multiplied by the packed (BN, P) 1x1 weight;
-// that requires BN == F (the whole hidden vector of a pixel in one block).
+// kept in shared memory and multiplied by rows n0..n0+BN of the packed
+// (F, P) 1x1 weight; with one chunk (BN == F) the block writes the output,
+// else its f32 partial sums go to part (F/BN, M, P) for rpn_head_reduce.
 template <typename T, int BM, int BN, int TM, int TN, bool EPI>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w,
              const float* __restrict__ bias, const T* __restrict__ wcr,
-             const float* __restrict__ bcr, T* __restrict__ out,
+             const float* __restrict__ bcr, float* __restrict__ part, T* __restrict__ out,
              int B, int H, int W, int C, int F, int P, int relu) {
   constexpr int BK = SIMT_BK;
   static_assert((BM / TM) * (BN / TN) == kThreads, "thread tiling");
@@ -175,7 +185,7 @@ conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int n = tn + j * (BN / TN);
-        float h = rnd<T>(rnd<T>(acc[i][j]) + rnd<T>(bias[n]));
+        float h = rnd<T>(rnd<T>(acc[i][j]) + rnd<T>(bias[n0 + n]));
         if (relu) h = fmaxf(h, 0.f);
         Hs[tm + i * (BM / TM)][n] = h;
       }
@@ -186,8 +196,11 @@ conv3x3_simt(const T* __restrict__ x, const T* __restrict__ w,
       const long m = m0 + mi;
       if (m >= M) continue;
       float s = 0.f;
-      for (int n = 0; n < BN; ++n) s += Hs[mi][n] * to_f(wcr[n * P + p]);
-      out[m * P + p] = from_f<T>(rnd<T>(rnd<T>(s) + rnd<T>(bcr[p])));
+      for (int n = 0; n < BN; ++n) s += Hs[mi][n] * to_f(wcr[(long)(n0 + n) * P + p]);
+      if (part)
+        part[((long)blockIdx.y * M + m) * P + p] = s;
+      else
+        out[m * P + p] = from_f<T>(rnd<T>(rnd<T>(s) + rnd<T>(bcr[p])));
     }
   }
 }
@@ -202,13 +215,13 @@ constexpr int BM = PATCH_X * PATCH_Y;     // 128 pixels: 64 per consumer warpgro
 constexpr int BK = 64;                    // channels per K step: one 128-byte swizzle row
 constexpr int WG = 128;                   // threads of a warpgroup
 constexpr int TC_THREADS = 3 * WG;        // producer warpgroup + two consumer warpgroups
-constexpr int TC_P = 16;                  // packed 1x1 columns, padded for wgmma
 constexpr int ROW_BYTES = BK * 2;         // one K-major row of a tile in shared memory
 constexpr int SW_ATOM = 8 * ROW_BYTES;    // 8 rows: the 128B swizzle's repeat (and wgmma's SBO)
 
 // Shared memory of one block, every buffer 1024-byte aligned (the 128B
-// swizzle pattern is a function of the address bits).
-template <int BN, bool EPI>
+// swizzle pattern is a function of the address bits). PN: the packed 1x1
+// columns padded for wgmma (16 or 128).
+template <int BN, bool EPI, int PN>
 struct TcCfg {
   static constexpr int STAGES = EPI ? 3 : 4;
   static constexpr int A_BYTES = BM * ROW_BYTES;                // 16 KB
@@ -218,7 +231,7 @@ struct TcCfg {
   // the last product has read it
   static constexpr int H_BYTES = EPI ? BM * BN * 2 : 0;
   static constexpr int W_OFF = STAGES * STAGE_BYTES > H_BYTES ? STAGES * STAGE_BYTES : H_BYTES;
-  static constexpr int W_BYTES = EPI ? TC_P * BN * 2 : 0;       // packed 1x1 weight, 8 KB
+  static constexpr int W_BYTES = EPI ? PN * BN * 2 : 0;         // packed 1x1 weight, 8 or 64 KB
   static constexpr int BAR_OFF = W_OFF + W_BYTES;
   static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + slack to align the base
   static_assert(SMEM <= 232448, "shared memory of one block");
@@ -341,6 +354,10 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D (64 x PN, f32, registers) += A (64 x 16) * B (16 x PN), PN = 16 or 128
+template <int PN>
+__device__ __forceinline__ void wgmma_epi(float (&d)[PN / 2], uint64_t da, uint64_t db);
+
 // D (64 x 16, f32, registers) += A (64 x 16) * B (16 x 16), both bf16 in shared memory
 __device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db) {
   asm volatile(
@@ -352,6 +369,14 @@ __device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_epi<16>(float (&d)[8], uint64_t da, uint64_t db) {
+  wgmma_n16(d, da, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_epi<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_n128(d, da, db);
+}
 
 // byte offset of element (row, k), k < 64, of a K-major tile in the 128B
 // swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B)
@@ -367,14 +392,16 @@ __device__ __forceinline__ float epi(float acc, float bias, int relu) {
 // tm_x: the NHWC map as a 4-D tensor (C, W, H, B), box (64, 16, 8, 1);
 // tm_w: the K-major weight (F, 9*Cp), box (64, BN); both 128B-swizzled.
 // Block (blockIdx.x, blockIdx.y) = (pixel patch, BN output channels).
-// EPI: BN == F == 256, out has P <= 16 channels; else out has F channels.
-template <int BN, bool EPI>
+// EPI: BN == 256 hidden channels n0..n0+255 and the packed 1x1 on them,
+// P <= PN columns: out (P channels) when F == 256, else the f32 partial
+// sums part (F/256, B*H*W, P). Without EPI, out has F channels.
+template <int BN, bool EPI, int PN>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
               const float* __restrict__ bias, const bf16* __restrict__ wcr,
-              const float* __restrict__ bcr, bf16* __restrict__ out, int H, int W, int Cp,
-              int F, int P, int relu, int tiles_x, int tiles_y) {
-  typedef TcCfg<BN, EPI> S;
+              const float* __restrict__ bcr, float* __restrict__ part, bf16* __restrict__ out,
+              int H, int W, int Cp, int F, int P, int relu, int tiles_x, int tiles_y) {
+  typedef TcCfg<BN, EPI, PN> S;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
@@ -396,12 +423,13 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ 
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if constexpr (EPI) {
-    // the packed 1x1 weight (F x P) as a K-major (16 x F) wgmma B operand:
-    // F/64 chunks of 16 rows x 64, zero columns beyond P
-    for (int e = threadIdx.x; e < TC_P * BN; e += TC_THREADS) {
-      const int p = e / BN, k = e % BN;
-      const bf16 v = p < P ? wcr[k * P + p] : __float2bfloat16_rn(0.f);
-      *reinterpret_cast<bf16*>(smem + S::W_OFF + (k / BK) * (TC_P * ROW_BYTES) +
+    // rows n0..n0+255 of the packed 1x1 weight (F x P) as a K-major
+    // (PN x 256) wgmma B operand: 4 chunks of PN rows x 64, zero columns
+    // beyond P; consecutive threads read consecutive columns of a row
+    for (int e = threadIdx.x; e < PN * BN; e += TC_THREADS) {
+      const int k = e / PN, p = e % PN;
+      const bf16 v = p < P ? wcr[(long)(n0 + k) * P + p] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<bf16*>(smem + S::W_OFF + (k / BK) * (PN * ROW_BYTES) +
                                sw128_off(p, k % BK)) = v;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
@@ -488,42 +516,48 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ 
           const int n = 8 * j + 2 * (lane % 4);
           *reinterpret_cast<__nv_bfloat162*>(hid + (n / BK) * (BM / 2) * ROW_BYTES +
                                              sw128_off(r, n % BK)) =
-              __floats2bfloat162_rn(epi(acc[4 * j + 2 * h], bias[n], relu),
-                                    epi(acc[4 * j + 2 * h + 1], bias[n + 1], relu));
+              __floats2bfloat162_rn(epi(acc[4 * j + 2 * h], bias[n0 + n], relu),
+                                    epi(acc[4 * j + 2 * h + 1], bias[n0 + n + 1], relu));
         }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, %1;\n" ::"r"(1 + cw), "n"(WG) : "memory");  // this warpgroup
 
-      // packed 1x1: (64 x 256 hidden) @ (256 x 16 weight), K = 256 in 16 steps
-      float o[8];
+      // packed 1x1: (64 x 256 hidden) @ (256 x PN weight), K = 256 in 16 steps
+      float o[PN / 2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = 0.f;
+      for (int i = 0; i < PN / 2; ++i) o[i] = 0.f;
       const uint32_t ha = smem_u32(hid), wa = sbase + S::W_OFF;
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BN / 16; ++k) {
         const int chunk = k / (BK / 16), kk = k % (BK / 16);
-        wgmma_n16(o, sw128_desc(ha + chunk * (BM / 2) * ROW_BYTES + kk * 32),
-                  sw128_desc(wa + chunk * TC_P * ROW_BYTES + kk * 32));
+        wgmma_epi<PN>(o, sw128_desc(ha + chunk * (BM / 2) * ROW_BYTES + kk * 32),
+                      sw128_desc(wa + chunk * PN * ROW_BYTES + kk * 32));
       }
       wgmma_commit();
       fence_regs(o);
       wgmma_wait<0>();
       fence_regs(o);
+      const long M = (long)(gridDim.x / (tiles_x * tiles_y)) * H * W;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = cw * (BM / 2) + warp * 16 + lane / 4 + 8 * h;
         const int y = y0 + r / PATCH_X, x = x0 + r % PATCH_X;
         if (y < H && x < W) {
-          bf16* op = out + (((long)b * H + y) * W + x) * P;
+          const long pix = ((long)b * H + y) * W + x;
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
+          for (int j = 0; j < PN / 8; ++j) {
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
               const int p = 8 * j + 2 * (lane % 4) + c;
-              if (p < P) op[p] = __float2bfloat16_rn(epi(o[4 * j + 2 * h + c], bcr[p], 0));
+              if (p < P) {
+                if (part)
+                  part[((long)blockIdx.y * M + pix) * P + p] = o[4 * j + 2 * h + c];
+                else
+                  out[pix * P + p] = __float2bfloat16_rn(epi(o[4 * j + 2 * h + c], bcr[p], 0));
+              }
             }
           }
         }
@@ -532,24 +566,49 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ 
   }
 }
 
+// the epilogue of F > 256: the chunks' f32 partial 1x1 sums part (chunks,
+// M, P) added in chunk order, then the bias, rounded where the one-chunk
+// epilogue rounds
+template <typename T>
+__global__ void rpn_head_reduce(const float* __restrict__ part, const float* __restrict__ bcr,
+                                T* __restrict__ out, long MP, int P, int chunks) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MP) return;
+  float s = part[i];
+  for (int c = 1; c < chunks; ++c) s += part[c * MP + i];
+  out[i] = from_f<T>(rnd<T>(rnd<T>(s) + rnd<T>(bcr[i % P])));
+}
+
+template <typename T>
+int launch_reduce(const float* part, const void* bcr, void* out, long M, int P, int chunks,
+                  cudaStream_t stream) {
+  const long MP = M * P;
+  rpn_head_reduce<T><<<(unsigned)((MP + 255) / 256), 256, 0, stream>>>(
+      part, (const float*)bcr, (T*)out, MP, P, chunks);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_simt(const void* x, const void* w, const void* b, const void* wcr, const void* bcr,
-                void* out, int B, int H, int W, int C, int F, int P, int relu,
+                float* part, void* out, int B, int H, int W, int C, int F, int P, int relu,
                 cudaStream_t stream) {
   const long M = (long)B * H * W;
   if (wcr) {
     constexpr int BM = 16, BN = 256;
-    dim3 grid((unsigned)((M + BM - 1) / BM), 1);
+    const int chunks = F / BN;
+    dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)chunks);
     conv3x3_simt<T, BM, BN, 4, 4, true><<<grid, kThreads, 0, stream>>>(
         (const T*)x, (const T*)w, (const float*)b, (const T*)wcr, (const float*)bcr,
-        (T*)out, B, H, W, C, F, P, relu);
-  } else {
-    constexpr int BM = 64, BN = 64;
-    dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + BN - 1) / BN));
-    conv3x3_simt<T, BM, BN, 4, 4, false><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (const T*)w, (const float*)b, nullptr, nullptr, (T*)out,
-        B, H, W, C, F, 0, relu);
+        chunks > 1 ? part : nullptr, (T*)out, B, H, W, C, F, P, relu);
+    const int rc = (int)cudaGetLastError();
+    if (rc || chunks == 1) return rc;
+    return launch_reduce<T>(part, bcr, out, M, P, chunks, stream);
   }
+  constexpr int BM = 64, BN = 64;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + BN - 1) / BN));
+  conv3x3_simt<T, BM, BN, 4, 4, false><<<grid, kThreads, 0, stream>>>(
+      (const T*)x, (const T*)w, (const float*)b, nullptr, nullptr, nullptr, (T*)out,
+      B, H, W, C, F, 0, relu);
   return (int)cudaGetLastError();
 }
 
@@ -584,11 +643,11 @@ bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool EPI>
+template <int BN, bool EPI, int PN>
 int launch_wgmma(const void* x, const void* wk, const void* b, const void* wcr, const void* bcr,
-                 void* out, int B, int H, int W, int C, int F, int P, int relu,
+                 float* part, void* out, int B, int H, int W, int C, int F, int P, int relu,
                  cudaStream_t stream) {
-  typedef TcCfg<BN, EPI> S;
+  typedef TcCfg<BN, EPI, PN> S;
   const int Cp = (C + BK - 1) / BK * BK;
   CUtensorMap tm_x, tm_w;
   const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
@@ -599,7 +658,7 @@ int launch_wgmma(const void* x, const void* wk, const void* b, const void* wcr, 
   const cuuint32_t wb[2] = {BK, BN};
   if (!encode(&tm_x, x, 4, xd, xs, xb) || !encode(&tm_w, wk, 2, wd, ws, wb))
     return (int)cudaErrorInvalidValue;
-  auto kernel = conv3x3_wgmma<BN, EPI>;
+  auto kernel = conv3x3_wgmma<BN, EPI, PN>;
   static bool opted_in = false;  // above 48 KB of shared memory only on request
   if (!opted_in) {
     const cudaError_t e =
@@ -608,11 +667,14 @@ int launch_wgmma(const void* x, const void* wk, const void* b, const void* wcr, 
     opted_in = true;
   }
   const int tiles_x = (W + PATCH_X - 1) / PATCH_X, tiles_y = (H + PATCH_Y - 1) / PATCH_Y;
-  dim3 grid((unsigned)((long)B * tiles_x * tiles_y), (unsigned)(F / BN));
-  kernel<<<grid, TC_THREADS, S::SMEM, stream>>>(tm_x, tm_w, (const float*)b, (const bf16*)wcr,
-                                                (const float*)bcr, (bf16*)out, H, W, Cp, F, P,
-                                                relu, tiles_x, tiles_y);
-  return (int)cudaGetLastError();
+  const int chunks = F / BN;
+  dim3 grid((unsigned)((long)B * tiles_x * tiles_y), (unsigned)chunks);
+  kernel<<<grid, TC_THREADS, S::SMEM, stream>>>(
+      tm_x, tm_w, (const float*)b, (const bf16*)wcr, (const float*)bcr,
+      EPI && chunks > 1 ? part : nullptr, (bf16*)out, H, W, Cp, F, P, relu, tiles_x, tiles_y);
+  const int rc = (int)cudaGetLastError();
+  if (rc || !EPI || chunks == 1) return rc;
+  return launch_reduce<bf16>(part, bcr, out, (long)B * H * W, P, chunks, stream);
 }
 
 int sm_count() {
@@ -628,27 +690,33 @@ int sm_count() {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. wcr/bcr null: plain conv (out has F
-// channels); otherwise the packed epilogue (F must be 256; out has P
-// channels). f32: w is HWIO (3, 3, C, F), C % 16 == 0. bf16: w is the
-// K-major (F, 9*Cp) weight with k = (ky*3 + kx)*Cp + c, Cp = C rounded up
-// to 64 and zeros for c >= C (rpn_head_cuda.py::conv_weight_kmajor);
-// C % 8 == 0, 16-byte aligned x and w, F % 128 == 0 without the epilogue
-// and P <= 16 with it. Shapes are checked by the Python wrapper; returns
-// the cudaGetLastError() code of the launch (cudaErrorInvalidValue if a
-// tensor map cannot be encoded).
+// channels); otherwise the packed epilogue (F % 256 == 0, P <= 128; out
+// has P channels; F > 256 needs part, f32 scratch of (F/256) * B*H*W * P).
+// f32: w is HWIO (3, 3, C, F), C % 16 == 0. bf16: w is the K-major
+// (F, 9*Cp) weight with k = (ky*3 + kx)*Cp + c, Cp = C rounded up to 64
+// and zeros for c >= C (rpn_head_cuda.py::conv_weight_kmajor); C % 8 == 0,
+// 16-byte aligned x and w, F % 128 == 0 without the epilogue. Shapes are
+// checked by the Python wrapper; returns the cudaGetLastError() code of the
+// launches (cudaErrorInvalidValue if a tensor map cannot be encoded).
 extern "C" int nsgp_conv3x3(const void* x, const void* w, const void* b, const void* wcr,
-                            const void* bcr, void* out, int B, int H, int W, int C, int F,
-                            int P, int relu, int dtype, void* stream) {
+                            const void* bcr, void* part, void* out, int B, int H, int W, int C,
+                            int F, int P, int relu, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* pt = (float*)part;
   if (dtype == 1) {
-    if (wcr) return launch_wgmma<256, true>(x, w, b, wcr, bcr, out, B, H, W, C, F, P, relu, s);
+    if (wcr && P <= 16)
+      return launch_wgmma<256, true, 16>(x, w, b, wcr, bcr, pt, out, B, H, W, C, F, P, relu, s);
+    if (wcr)
+      return launch_wgmma<256, true, 128>(x, w, b, wcr, bcr, pt, out, B, H, W, C, F, P, relu, s);
     // 256 channels per block read each A tile once for all of them; blocks
     // of 128 pay off where twice as many still fit in one wave (the small
     // levels at batch 1), since a tile's time, not the card, bounds those
     const long tiles = (long)B * ((W + PATCH_X - 1) / PATCH_X) * ((H + PATCH_Y - 1) / PATCH_Y);
     if (F % 256 == 0 && 2 * tiles > sm_count())
-      return launch_wgmma<256, false>(x, w, b, nullptr, nullptr, out, B, H, W, C, F, 0, relu, s);
-    return launch_wgmma<128, false>(x, w, b, nullptr, nullptr, out, B, H, W, C, F, 0, relu, s);
+      return launch_wgmma<256, false, 16>(x, w, b, nullptr, nullptr, nullptr, out, B, H, W, C, F,
+                                          0, relu, s);
+    return launch_wgmma<128, false, 16>(x, w, b, nullptr, nullptr, nullptr, out, B, H, W, C, F,
+                                        0, relu, s);
   }
-  return launch_simt<float>(x, w, b, wcr, bcr, out, B, H, W, C, F, P, relu, s);
+  return launch_simt<float>(x, w, b, wcr, bcr, pt, out, B, H, W, C, F, P, relu, s);
 }

@@ -72,13 +72,15 @@ def trainable_mask(model: FasterRCNN, config: DetectorConfig) -> Dict[str, bool]
     """Parameter name → trainable: the stem and the first
     ``frozen_stages`` stages are frozen (mmdet resnet.py: -1 = nothing,
     0 = stem only, k >= 1 = stem + layers 1..k), and so are the future
-    tasks' cls/reg heads (convfc_bbox_head_task.py:129-144)."""
-    fs = config.frozen_stages
+    tasks' cls/reg heads (convfc_bbox_head_task.py:129-144). A config
+    without ``frozen_stages`` (SSD's VGG) freezes nothing, one without
+    ``task_split`` (RetinaNet, SSD) has no task heads."""
+    fs = getattr(config, "frozen_stages", -1)
     frozen = []
     if fs >= 0:
         frozen += ["backbone.conv1.", "backbone.bn1."]
     frozen += [f"backbone.layer{s}." for s in range(1, fs + 1)]
-    for i in range(len(config.task_split) - 1):
+    for i in range(len(getattr(config, "task_split", (0,))) - 1):
         if i + 1 > config.task_id:
             frozen += [f"roi_head.bbox_head.fc_cls.{i}.", f"roi_head.bbox_head.fc_reg.{i}."]
     return {name: not any(name.startswith(f) for f in frozen)

@@ -165,8 +165,62 @@ class _RoIHead(nn.Module):
         self.bbox_head = bbox_head
 
 
+def anchor_valid_flags(cfg, sizes, img_shape: torch.Tensor) -> torch.Tensor:
+    """(B, N) inside-image flags of every anchor from each image's padded
+    shape (detector.py:242-266): the grid cell must lie inside
+    ceil(pad_shape / stride), pad_shape the resized shape rounded up to
+    ``cfg.pad_size_divisor`` (mmdet valid_flags with allowed_border=-1).
+    ``cfg`` names the anchor strides and the priors per location."""
+    A = cfg.num_base_priors
+    B = img_shape.shape[0]
+    dev = img_shape.device
+    div = float(cfg.pad_size_divisor)
+    shape = img_shape.to(torch.float32)
+    pad_h = (torch.ceil(shape[:, 0] / div) * div)[:, None, None]
+    pad_w = (torch.ceil(shape[:, 1] / div) * div)[:, None, None]
+    flags = []
+    for (fh, fw), stride in zip(sizes, cfg.anchor_strides):
+        gy = torch.arange(fh, device=dev)[None, :, None]
+        gx = torch.arange(fw, device=dev)[None, None, :]
+        f = (gy < torch.ceil(pad_h / stride)) & (gx < torch.ceil(pad_w / stride))
+        flags.append(f.reshape(B, -1).repeat_interleave(A, dim=1))
+    return torch.cat(flags, dim=1)
+
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """N(0, std) draws from the CPU generator (weights independent of the device)."""
+    t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def he_normal_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """He normal over fan_out (CovConv's default init in JAX)."""
+    normal_(t, math.sqrt(2.0 / (t.shape[0] * t[0, 0].numel())), generator)
+
+
+def xavier_(t: torch.Tensor, generator: torch.Generator) -> None:
+    """Xavier uniform (the FPN's and the shared FCs' init in JAX)."""
+    fan_out, fan_in = t.shape[0], t.shape[1]
+    rf = t[0, 0].numel() if t.dim() > 2 else 1
+    lim = math.sqrt(6.0 / ((fan_in + fan_out) * rf))
+    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * lim)
+
+
+def reset_norms_and_biases(model: nn.Module) -> None:
+    """Zero biases and identity frozen BNs, every init's last step."""
+    for m in model.modules():
+        if isinstance(m, (CovConv, CovDense)) and m.bias is not None:
+            m.bias.zero_()
+        if isinstance(m, FrozenBatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+
+
 class FasterRCNN(nn.Module):
-    """Backbone + FPN + RPN + task-split RoI head."""
+    """Backbone + FPN + RPN + task-split RoI head. The model zoo's
+    families change a part through its ``_build_*`` method (the C4 and
+    DC5 trunks have no neck: ``_build_neck`` gives None)."""
 
     def __init__(self, config: DetectorConfig):
         super().__init__()
@@ -174,14 +228,23 @@ class FasterRCNN(nn.Module):
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         self.config = cfg
-        self.backbone = ResNet50(stage_blocks=cfg.backbone_blocks,
-                                 frozen_stages=cfg.frozen_stages)
-        self.neck = FPN(out_channels=256, num_outs=5)
-        self.rpn_head = RPNHead(256, 256, cfg.num_base_priors)
+        self.backbone = self._build_backbone()
+        self.neck = self._build_neck()
+        self.rpn_head = self._build_rpn_head()
         self.roi_head = self._build_roi_head()
         self.anchor_gen = AnchorGenerator(
             strides=cfg.anchor_strides, ratios=cfg.anchor_ratios, scales=cfg.anchor_scales)
         self._anchor_cache: Dict[tuple, torch.Tensor] = {}
+
+    def _build_backbone(self) -> nn.Module:
+        cfg = self.config
+        return ResNet50(stage_blocks=cfg.backbone_blocks, frozen_stages=cfg.frozen_stages)
+
+    def _build_neck(self) -> Optional[nn.Module]:
+        return FPN(out_channels=256, num_outs=5)
+
+    def _build_rpn_head(self) -> nn.Module:
+        return RPNHead(256, 256, self.config.num_base_priors)
 
     def _build_roi_head(self) -> Optional[nn.Module]:
         """The RoI head (``roi_head.*``); the model zoo's families override it."""
@@ -210,40 +273,29 @@ class FasterRCNN(nn.Module):
         biases, identity BN. Draws on the CPU generator, so the weights do
         not depend on the device."""
 
-        def normal_(t, std):
-            t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-        def xavier_(t):
-            fan_out, fan_in = t.shape[0], t.shape[1]
-            rf = t[0, 0].numel() if t.dim() > 2 else 1
-            lim = math.sqrt(6.0 / ((fan_in + fan_out) * rf))
-            t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * lim)
-
+        g = generator
         for m in self.backbone.modules():
             if isinstance(m, CovConv):
-                normal_(m.weight, math.sqrt(2.0 / (m.weight.shape[0] * m.weight[0, 0].numel())))
-        for m in self.neck.modules():
+                he_normal_(m.weight, g)
+        for m in (self.neck.modules() if self.neck is not None else ()):
             if isinstance(m, CovConv):
-                xavier_(m.weight)
+                xavier_(m.weight, g)
         for m in self.rpn_head.modules():
             if isinstance(m, CovConv):
-                normal_(m.weight, 0.01)
+                normal_(m.weight, 0.01, g)
         for head in self._bbox_heads():
             for m in head.shared_fcs:
-                xavier_(m.weight)
+                xavier_(m.weight, g)
             for m in head.fc_cls:
-                normal_(m.weight, 0.01)
+                normal_(m.weight, 0.01, g)
             for m in head.fc_reg:
-                normal_(m.weight, 0.001)
-        for m in self.modules():
-            if isinstance(m, (CovConv, CovDense)) and m.bias is not None:
-                m.bias.zero_()
-            if isinstance(m, FrozenBatchNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
+                normal_(m.weight, 0.001, g)
+        self._init_extra(g)
+        reset_norms_and_biases(self)
         return self
+
+    def _init_extra(self, generator: torch.Generator) -> None:
+        """The init of what a family adds (the C4 head's res5 and classifiers)."""
 
     # ------------------------------------------------------------------
     def extract_feat(self, images: torch.Tensor, inference: bool = False) -> Tuple[torch.Tensor, ...]:
@@ -253,7 +305,9 @@ class FasterRCNN(nn.Module):
         cfg = self.config
         fused = inference and cfg.rpn_fused_head and images.shape[0] <= cfg.infer_fused_max_batch
         x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        feats = self.neck(self.backbone(x), fused=fused)
+        feats = self.backbone(x)
+        if self.neck is not None:
+            feats = self.neck(feats, fused=fused)
         return tuple(nhwc(f) for f in feats)
 
     def _anchors(self, feats) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
@@ -268,25 +322,8 @@ class FasterRCNN(nn.Module):
 
     # ------------------------------------------------------------------
     def _anchor_valid(self, sizes, img_shape: torch.Tensor) -> torch.Tensor:
-        """(B, N) inside-image flags of every anchor from each image's
-        padded shape (detector.py:242-266): the grid cell must lie inside
-        ceil(pad_shape / stride), pad_shape the resized shape rounded up to
-        ``pad_size_divisor`` (mmdet valid_flags with allowed_border=-1)."""
-        cfg = self.config
-        A = cfg.num_base_priors
-        B = img_shape.shape[0]
-        dev = img_shape.device
-        div = float(cfg.pad_size_divisor)
-        shape = img_shape.to(torch.float32)
-        pad_h = (torch.ceil(shape[:, 0] / div) * div)[:, None, None]
-        pad_w = (torch.ceil(shape[:, 1] / div) * div)[:, None, None]
-        flags = []
-        for (fh, fw), stride in zip(sizes, cfg.anchor_strides):
-            gy = torch.arange(fh, device=dev)[None, :, None]
-            gx = torch.arange(fw, device=dev)[None, None, :]
-            f = (gy < torch.ceil(pad_h / stride)) & (gx < torch.ceil(pad_w / stride))
-            flags.append(f.reshape(B, -1).repeat_interleave(A, dim=1))
-        return torch.cat(flags, dim=1)
+        """(B, N) inside-image anchor flags (:func:`anchor_valid_flags`)."""
+        return anchor_valid_flags(self.config, sizes, img_shape)
 
     @staticmethod
     def _priorities(given, shape, generator, device) -> torch.Tensor:
@@ -518,10 +555,17 @@ class FasterRCNN(nn.Module):
         u2 = self._priorities(p.get("roi2"), shape, generator, dev)
         gt = gt.to(dev)
         rois, batch_idx, labels, valid, pos, tgt = self._sample_rois(proposals, gt, u, u2)
-        losses = self._bbox_losses(feats, rois, batch_idx, labels, valid, pos, tgt)
-        losses.update(self._extra_roi_losses(feats, rois, batch_idx, labels, pos, gt))
+        losses = self._roi_losses(feats, rois, batch_idx, labels, valid, pos, tgt, gt)
         if replay_feats is not None:
             losses["replay_loss_cls"] = self.replay_loss(replay_feats, replay_labels)
+        return losses
+
+    def _roi_losses(self, feats, rois, batch_idx, labels, valid, pos, tgt,
+                    gt: InstanceArray) -> Dict[str, torch.Tensor]:
+        """The RoI head's losses on the sampled RoIs: the bbox head's, and
+        those a family adds (the mask head's)."""
+        losses = self._bbox_losses(feats, rois, batch_idx, labels, valid, pos, tgt)
+        losses.update(self._extra_roi_losses(feats, rois, batch_idx, labels, pos, gt))
         return losses
 
     def _extra_roi_losses(self, feats, rois, batch_idx, labels, pos,
@@ -529,13 +573,20 @@ class FasterRCNN(nn.Module):
         """Losses a family adds on the same sampled RoIs (the mask head's)."""
         return {}
 
+    def _roi_head_forward(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """RoIAlign output → (cls_score, bbox_pred) in the compute dtype."""
+        return self.bbox_head(roi_feats)
+
     def _bbox_losses(self, feats, rois, batch_idx, labels, valid, pos,
                      tgt) -> Dict[str, torch.Tensor]:
         """``loss_cls``, ``loss_bbox`` (L1 on the sampled class's
         regression) and ``acc`` of the sampled RoIs (detector.py:586-608)."""
+        cls_score, bbox_pred = self._roi_head_forward(self._roi_feats(feats, rois, batch_idx))
+        return self._cls_reg_losses(cls_score, bbox_pred, labels, valid, pos, tgt)
+
+    def _cls_reg_losses(self, cls_score, bbox_pred, labels, valid, pos,
+                        tgt) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        roi_feats = self._roi_feats(feats, rois, batch_idx)
-        cls_score, bbox_pred = self.bbox_head(roi_feats)
         cls_score = cls_score.float()
         bbox_pred = bbox_pred.float()
 
@@ -624,8 +675,7 @@ class FasterRCNN(nn.Module):
         dev = proposals.boxes.device
         rois = proposals.boxes.reshape(-1, 4)
         batch_idx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(R)
-        roi_feats = self._roi_feats(feats, rois, batch_idx)
-        cls_score, bbox_pred = self.bbox_head(roi_feats)
+        cls_score, bbox_pred = self._roi_head_forward(self._roi_feats(feats, rois, batch_idx))
         cls_score = cls_score.float().reshape(B, R, -1)
         bbox_pred = bbox_pred.float().reshape(B, R, -1)
 

@@ -1,11 +1,10 @@
 """Detection losses with mmdet weight/avg_factor semantics.
 
 Counterpart of nsgp_repre_tpu/models/losses.py: ``weighted_sigmoid_bce``,
-``weighted_softmax_ce``, ``weighted_l1``, ``weighted_smooth_l1`` and
-``accuracy`` (mmdet cross_entropy_loss.py:202, smooth_l1_loss.py:14,118):
-elementwise loss times weight, summed and divided by ``avg_factor``. The
-focal loss serves the single-stage models and is not ported yet
-(ROADMAP.md, queue 1 item 4).
+``weighted_softmax_ce``, ``weighted_l1``, ``weighted_sigmoid_focal``
+(RetinaNet), ``weighted_smooth_l1`` and ``accuracy`` (mmdet
+cross_entropy_loss.py:202, focal_loss.py, smooth_l1_loss.py:14,118):
+elementwise loss times weight, summed and divided by ``avg_factor``.
 """
 from __future__ import annotations
 
@@ -38,6 +37,24 @@ def weighted_l1(pred: torch.Tensor, target: torch.Tensor, weights: torch.Tensor,
                 avg_factor) -> torch.Tensor:
     loss = torch.abs(pred - target)
     return (loss * weights).sum() / _avg(avg_factor)
+
+
+def weighted_sigmoid_focal(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                           avg_factor, num_classes: int, gamma: float = 2.0,
+                           alpha: float = 0.25) -> torch.Tensor:
+    """Sigmoid focal loss (mmdet FocalLoss, use_sigmoid=True; losses.py:49
+    in JAX): one-vs-all sigmoids over ``num_classes`` columns of logits
+    (..., num_classes); ``labels == num_classes`` is background (an
+    all-zero target row); ``weights`` (...) weigh the rows."""
+    classes = torch.arange(num_classes, device=labels.device)
+    t = (labels[..., None] == classes).to(logits.dtype)
+    p = torch.sigmoid(logits)
+    relu = torch.maximum(logits, torch.zeros_like(logits))
+    bce = relu - logits * t + torch.log1p(torch.exp(-torch.abs(logits)))
+    pt = (1.0 - p) * t + p * (1.0 - t)
+    alpha_t = alpha * t + (1.0 - alpha) * (1.0 - t)
+    loss = alpha_t * torch.pow(pt, gamma) * bce
+    return (loss * weights[..., None]).sum() / _avg(avg_factor)
 
 
 def weighted_smooth_l1(pred: torch.Tensor, target: torch.Tensor, weights: torch.Tensor,

@@ -156,11 +156,16 @@ def mask_targets(rois: torch.Tensor, batch_idx: torch.Tensor, gt: InstanceArray,
 
 class MaskBranch:
     """The mask head's part of a detector (``roi_head.mask_head``); mixed
-    in before the detector class it extends."""
+    in before the detector class it extends. ``mask_in_channels``: the
+    channels of the features the mask head takes (the C4 head's res5
+    output: 2048)."""
+
+    mask_in_channels = 256
 
     def _add_mask_head(self) -> None:
         cfg = self.config
         self.roi_head.mask_head = FCNMaskHead(cfg.num_classes, cfg.mask_convs,
+                                              in_channels=self.mask_in_channels,
                                               channels=cfg.mask_channels)
 
     @property
@@ -182,12 +187,19 @@ class MaskBranch:
             sampling_ratio=cfg.roi_sampling_ratio, finest_scale=cfg.roi_finest_scale,
         ).to(self.dtype)
 
+    def _mask_logits(self, feats, rois, batch_idx) -> torch.Tensor:
+        """The mask head's f32 (N, M, M, num_classes) logits on the RoIs."""
+        return self.mask_head(self._mask_roi_feats(feats, rois, batch_idx)).float()
+
     def _mask_loss(self, feats, rois, batch_idx, labels, pos, gt: InstanceArray) -> torch.Tensor:
+        return self._mask_bce(self._mask_logits(feats, rois, batch_idx), rois, batch_idx, labels,
+                              pos, gt)
+
+    def _mask_bce(self, logits, rois, batch_idx, labels, pos, gt: InstanceArray) -> torch.Tensor:
         """BCE of the sampled RoIs' label-slice logits against their targets
-        (CrossEntropyLoss use_mask=True), the mean over each RoI's 28x28
+        (CrossEntropyLoss use_mask=True), the mean over each RoI's MxM
         weighted by the positives."""
         cfg = self.config
-        logits = self.mask_head(self._mask_roi_feats(feats, rois, batch_idx)).float()
         targets = mask_targets(rois, batch_idx, gt, cfg.mask_size)
         M = cfg.mask_size
         lbl = torch.clamp(labels, 0, cfg.num_classes - 1).long()
@@ -200,7 +212,7 @@ class MaskBranch:
     def _predict_masks(self, feats, dets: InstanceArray, batch: DetBatch,
                        rescale: bool) -> InstanceArray:
         """The mask head on the detections, in input coordinates:
-        per-detection (B, D, 28, 28) probabilities of its label."""
+        per-detection (B, D, M, M) probabilities of its label."""
         cfg = self.config
         B, D = dets.boxes.shape[:2]
         dev = dets.boxes.device
@@ -209,7 +221,7 @@ class MaskBranch:
             scale = batch.scale_factor.to(device=dev, dtype=torch.float32)
             boxes = boxes * torch.cat([scale, scale], dim=-1)[:, None, :]
         bidx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(D)
-        logits = self.mask_head(self._mask_roi_feats(feats, boxes.reshape(-1, 4), bidx)).float()
+        logits = self._mask_logits(feats, boxes.reshape(-1, 4), bidx)
         M = cfg.mask_size
         lbl = torch.clamp(dets.labels.reshape(-1), 0, cfg.num_classes - 1).long()
         per_det = torch.gather(logits, 3, lbl[:, None, None, None].expand(-1, M, M, 1))[..., 0]

@@ -1,36 +1,47 @@
-"""Model zoo: build a two-stage detector from a reference-shaped model
-config dict.
+"""Model zoo: build a detector from a reference-shaped model config dict.
 
-Counterpart of nsgp_repre_tpu/models/zoo.py::build_detector for the
-FPN two-stage families of cl_faster_rcnn_cfgs/_base_/models/:
+Counterpart of nsgp_repre_tpu/models/zoo.py::build_detector for every
+model base under cl_faster_rcnn_cfgs/_base_/models/:
 
 | config ``model.type``            | class                                 |
 |----------------------------------|---------------------------------------|
 | FasterRCNN / FasterRCNNRoIReplay | models.detector.FasterRCNN            |
+| RetinaNet                        | models.single_stage.RetinaNet         |
+| SSD                              | models.ssd.SSD                        |
 | RPN                              | models.two_stage_variants.RPN         |
 | FastRCNN                         | models.two_stage_variants.FastRCNN    |
 | MaskRCNN                         | models.mask.MaskRCNN                  |
+| FasterRCNNC4 / FasterRCNNDC5     | models.c4.FasterRCNNC4 / FasterRCNNDC5 |
+| MaskRCNNC4                       | models.c4.MaskRCNNC4                  |
+| RPNC4                            | models.c4.RPNC4                       |
 | CascadeRCNN                      | models.cascade.CascadeRCNN            |
 | CascadeMaskRCNN                  | models.cascade.CascadeMaskRCNN        |
 
-RetinaNet, SSD and the caffe C4/DC5 trunks are not ported yet and
-raise NotImplementedError (ROADMAP.md, queue 1 item 4). The config
-mapping is JAX's: the mask config's RoIAlign ``sampling_ratio=0`` is not
-read (``roi_sampling_ratio`` stays 2).
+Another type raises ValueError. The config mapping is JAX's
+(zoo.py:77-254): RetinaNet's and SSD's overrides keep only their config's
+fields (``backbone_blocks`` means nothing to the VGG of SSD), the mask
+config's RoIAlign ``sampling_ratio=0`` is not read (``roi_sampling_ratio``
+stays 2).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
+import dataclasses
+
 import torch
 
 from ..utils.device import resolve_device
+from .c4 import RPNC4, FasterRCNNC4, FasterRCNNDC5, MaskRCNNC4
 from .cascade import CascadeConfig, CascadeMaskConfig, CascadeMaskRCNN, CascadeRCNN
 from .detector import DetectorConfig, FasterRCNN
 from .mask import MaskRCNN, MaskRCNNConfig
+from .single_stage import RetinaNet, RetinaNetConfig
+from .ssd import SSD, SSDConfig
 from .two_stage_variants import RPN, FastRCNN
 
-NOT_PORTED_TYPES = ("RetinaNet", "SSD", "FasterRCNNC4", "MaskRCNNC4", "RPNC4", "FasterRCNNDC5")
+C4_TYPES = {"FasterRCNNC4": FasterRCNNC4, "MaskRCNNC4": MaskRCNNC4, "RPNC4": RPNC4,
+            "FasterRCNNDC5": FasterRCNNDC5}
 
 
 def _two_stage_kwargs(model: Dict[str, Any], num_classes: int) -> Dict[str, Any]:
@@ -92,6 +103,66 @@ def _cascade_kwargs(model: Dict[str, Any]) -> Dict[str, Any]:
     return extra
 
 
+def _only_fields(cls, kw: Dict[str, Any]) -> Dict[str, Any]:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in kw.items() if k in names}
+
+
+def _retinanet_config(model, num_classes, compute_dtype, overrides) -> RetinaNetConfig:
+    head = model.get("bbox_head", {}) or {}
+    test_cfg = model.get("test_cfg", {}) or {}
+    assigner = (model.get("train_cfg", {}) or {}).get("assigner", {})
+    anchor = head.get("anchor_generator", {}) or {}
+    bb = model.get("backbone", {}) or {}
+    kw = dict(
+        num_classes=num_classes or head.get("num_classes", 80),
+        anchor_strides=tuple(anchor.get("strides", (8, 16, 32, 64, 128))),
+        anchor_ratios=tuple(anchor.get("ratios", (0.5, 1.0, 2.0))),
+        octave_base_scale=anchor.get("octave_base_scale", 4),
+        scales_per_octave=anchor.get("scales_per_octave", 3),
+        stacked_convs=head.get("stacked_convs", 4),
+        feat_channels=head.get("feat_channels", 256),
+        pos_iou_thr=assigner.get("pos_iou_thr", 0.5),
+        neg_iou_thr=assigner.get("neg_iou_thr", 0.4),
+        min_pos_iou=assigner.get("min_pos_iou", 0.0),
+        focal_gamma=head.get("loss_cls", {}).get("gamma", 2.0),
+        focal_alpha=head.get("loss_cls", {}).get("alpha", 0.25),
+        nms_pre=test_cfg.get("nms_pre", 1000),
+        score_thr=test_cfg.get("score_thr", 0.05),
+        nms_iou=test_cfg.get("nms", {}).get("iou_threshold", 0.5),
+        max_per_img=test_cfg.get("max_per_img", 100),
+        backbone_blocks=tuple(bb.get("stage_blocks", (3, 4, 6, 3))),
+        frozen_stages=bb.get("frozen_stages", 1),
+        compute_dtype=compute_dtype,
+    )
+    kw.update(_only_fields(RetinaNetConfig, overrides))
+    return RetinaNetConfig(**kw)
+
+
+def _ssd_config(model, num_classes, compute_dtype, overrides) -> SSDConfig:
+    head = model.get("bbox_head", {}) or {}
+    train_cfg = model.get("train_cfg", {}) or {}
+    test_cfg = model.get("test_cfg", {}) or {}
+    anchor = head.get("anchor_generator", {}) or {}
+    kw = dict(
+        num_classes=num_classes or head.get("num_classes", 80),
+        input_size=anchor.get("input_size", 300),
+        strides=tuple(anchor.get("strides", (8, 16, 32, 64, 100, 300))),
+        level_ratios=tuple(tuple(float(x) for x in r) for r in
+                           anchor.get("ratios", [[2], [2, 3], [2, 3], [2, 3], [2], [2]])),
+        basesize_ratio_range=tuple(anchor.get("basesize_ratio_range", (0.15, 0.9))),
+        neg_pos_ratio=train_cfg.get("neg_pos_ratio", 3),
+        smoothl1_beta=train_cfg.get("smoothl1_beta", 1.0),
+        nms_pre=test_cfg.get("nms_pre", 1000),
+        score_thr=test_cfg.get("score_thr", 0.02),
+        nms_iou=test_cfg.get("nms", {}).get("iou_threshold", 0.45),
+        max_per_img=test_cfg.get("max_per_img", 200),
+        compute_dtype=compute_dtype,
+    )
+    kw.update(_only_fields(SSDConfig, overrides))
+    return SSDConfig(**kw)
+
+
 def _head_num_classes(model: Dict[str, Any]) -> int:
     rh = model.get("roi_head", {}) or {}
     bh = rh.get("bbox_head", {})
@@ -101,14 +172,15 @@ def _head_num_classes(model: Dict[str, Any]) -> int:
 
 
 def build_config(model: Dict[str, Any], num_classes: Optional[int] = None,
-                 compute_dtype: str = "float32", **overrides) -> Tuple[type, DetectorConfig]:
+                 compute_dtype: str = "float32", **overrides) -> Tuple[type, Any]:
     """(model-config dict) → (detector class, its config dataclass), with
     JAX's mapping (zoo.py:77-254). ``num_classes`` overrides the head's
     (the bases keep COCO's 80)."""
     typ = model.get("type", "FasterRCNN")
-    if typ in NOT_PORTED_TYPES:
-        raise NotImplementedError(
-            f"model type {typ!r} is not ported yet (ROADMAP.md, queue 1 item 4)")
+    if typ == "RetinaNet":
+        return RetinaNet, _retinanet_config(model, num_classes, compute_dtype, overrides)
+    if typ == "SSD":
+        return SSD, _ssd_config(model, num_classes, compute_dtype, overrides)
     nc = num_classes if num_classes is not None else _head_num_classes(model)
     kw = _two_stage_kwargs(model, nc)
     kw["compute_dtype"] = compute_dtype
@@ -129,6 +201,19 @@ def build_config(model: Dict[str, Any], num_classes: Optional[int] = None,
         return MaskRCNN, MaskRCNNConfig(
             **kw, mask_convs=mh.get("num_convs", 4),
             mask_channels=mh.get("conv_out_channels", 256))
+    if typ in C4_TYPES:
+        # single-level caffe trunks: anchor scales 2-32 on stride 16
+        anchor = (model.get("rpn_head", {}) or {}).get("anchor_generator", {}) or {}
+        kw["anchor_strides"] = tuple(anchor.get("strides", (16,)))
+        kw["anchor_scales"] = tuple(float(s) for s in anchor.get("scales", (2, 4, 8, 16, 32)))
+        kw["roi_strides"] = kw["anchor_strides"]
+        if typ == "MaskRCNNC4":
+            # shared res5 mask branch, FCNMaskHead(num_convs=0), mask_size=14
+            mh = (model.get("roi_head", {}) or {}).get("mask_head", {}) or {}
+            return MaskRCNNC4, MaskRCNNConfig(
+                **kw, mask_size=14, mask_roi_out_size=14, mask_convs=mh.get("num_convs", 0),
+                mask_channels=mh.get("conv_out_channels", 256))
+        return C4_TYPES[typ], DetectorConfig(**kw)
     if typ == "CascadeMaskRCNN":
         return CascadeMaskRCNN, CascadeMaskConfig(**kw, **_cascade_kwargs(model))
     if typ == "CascadeRCNN":
@@ -143,7 +228,8 @@ def build_detector(model: Dict[str, Any], num_classes: Optional[int] = None,
     """(model-config dict) → (detector, its config): the detector with a
     seeded random init (``init_weights``), in eval mode, on ``device``
     (``cuda`` unless the caller names one; with none named and no CUDA
-    device it raises). Overrides are config fields."""
+    device it raises). Overrides are config fields (RetinaNet and SSD
+    drop those their config lacks, as JAX's does)."""
     dev = resolve_device(device)
     cls, cfg = build_config(model, num_classes, compute_dtype, **overrides)
     det = cls(cfg).init_weights(torch.Generator().manual_seed(seed))

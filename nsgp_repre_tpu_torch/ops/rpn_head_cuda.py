@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from . import _ext
 
 KSTEP = 64  # channels per K step of the bf16 kernel (csrc/conv3x3.cu BK)
+HIDDEN_CHUNK = 256  # hidden channels per block of the fused head; F is a multiple of it
+MAX_PACKED = 128  # packed 1x1 columns the fused head takes (the TPU kernel's lane padding)
 
 
 def _conv3x3_plain(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool):
@@ -99,17 +101,22 @@ def _launch(f, w, b, wcr: Optional[torch.Tensor], bcr: Optional[torch.Tensor],
     if bf16 and f.data_ptr() % 16:
         raise ValueError(f"{name} kernel loads the map by TMA: f must be 16-byte aligned")
     P = 0
+    part = None
     if wcr is not None:
         P = wcr.shape[1]
-        if Fo != 256:
-            raise ValueError(f"{name} kernel keeps F=256 hidden channels per block, got {Fo}")
+        if Fo % HIDDEN_CHUNK:
+            raise ValueError(f"{name} kernel takes the hidden width F in chunks of "
+                             f"{HIDDEN_CHUNK}, got F={Fo}")
         if tuple(wcr.shape) != (Fo, P) or bcr is None or tuple(bcr.shape) != (P,):
             raise ValueError(f"wcr (F,P) / bcr (P,) mismatch: {tuple(wcr.shape)}, "
                              f"{None if bcr is None else tuple(bcr.shape)}")
-        if bf16 and P > 16:
-            raise ValueError(f"{name} kernel packs at most 16 1x1 columns, got {P}")
+        if not 0 < P <= MAX_PACKED:
+            raise ValueError(f"{name} kernel packs 1 to {MAX_PACKED} 1x1 columns, got {P}")
         wcr = wcr.to(device=f.device, dtype=f.dtype).contiguous()
         bcr = bcr.to(device=f.device, dtype=torch.float32).contiguous()
+        if Fo > HIDDEN_CHUNK:  # each chunk's f32 partial 1x1 sums, added by a second launch
+            part = torch.empty((Fo // HIDDEN_CHUNK, B * H * W, P), device=f.device,
+                               dtype=torch.float32)
     elif bf16 and Fo % 128:
         raise ValueError(f"{name} kernel needs F % 128 == 0 in bf16, got F={Fo}")
     w = w.to(device=f.device)
@@ -120,6 +127,7 @@ def _launch(f, w, b, wcr: Optional[torch.Tensor], bcr: Optional[torch.Tensor],
         rc = _ext.lib().nsgp_conv3x3(
             f.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if wcr is None else wcr.data_ptr(), None if bcr is None else bcr.data_ptr(),
+            None if part is None else part.data_ptr(),
             out.data_ptr(), B, H, W, C, Fo, P, int(relu), _ext.DTYPE_CODE[f.dtype],
             _ext.stream_ptr(f),
         )
@@ -139,7 +147,11 @@ def conv3x3(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def rpn_head(f: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              wcr: torch.Tensor, bcr: torch.Tensor) -> torch.Tensor:
-    """One level of the fused RPN head: (B,H,W,C) → (B,H,W,P)."""
+    """One level of the fused RPN head: (B,H,W,C) → (B,H,W,P). The card
+    takes F a multiple of 256 (256 for the FPN head, 1024 and 2048 for the
+    C4 and DC5 heads) and P <= 128; above F = 256 it is two launches (the
+    chunks' partial 1x1 sums, then their sum in chunk order), counted as
+    one call."""
     _forward_only("rpn_head", f, w1, b1, wcr, bcr)
     if not f.is_cuda:
         return rpn_head_plain(f, w1, b1, wcr, bcr)

@@ -18,6 +18,20 @@ in, out) is torch's ConvTranspose2d weight (in, out, kh, kw) with both
 spatial axes flipped (flax convolves the dilated input with the kernel as
 stored; torch scatters with it, which is the convolution with the
 flipped kernel).
+The rest of the zoo maps onto mmdet's names too: RetinaNet's towers
+``bbox_head/{cls,reg}_conv{i}`` onto ``bbox_head.{cls,reg}_convs.{i}.conv``
+and ``retina_{cls,reg}`` by name; the C4 head's res5
+``bbox_head/shared_head/layer4_{b}/*`` onto
+``roi_head.shared_head.layer4.{b}.*`` and its plain ``bbox_head/fc_cls``
+and ``fc_reg`` (no task digit) onto ``roi_head.bbox_head.fc_cls`` and
+``fc_reg``. SSD reuses two JAX names of other families with other
+modules (``backbone/conv1`` is VGG's second conv, ``bbox_head/cls_conv0``
+a level's classifier), so its paths map by a table of their own, chosen
+when the parameters hold SSD's bare ``neck/l2_norm``
+(``neck.l2_norm.weight``): the VGG convs ``backbone/conv{i}``, ``fc6``,
+``fc7`` onto mmdet's ``backbone.features.{idx}``, the extra levels
+``neck/extra{i}_{1,2}`` onto ``neck.extra_layers.{i}.{0,1}.conv``, the
+head's ``bbox_head/{cls,reg}_conv{i}`` onto ``bbox_head.{cls,reg}_convs.{i}.0``.
 :func:`port_name_from_jax` maps one parameter path (the key of the NSGP
 transforms and covariances) to a port name, and
 :func:`jax_path_from_port` maps a port name back.
@@ -32,7 +46,21 @@ import torch
 
 _BBOX = "roi_head.bbox_head"
 _MASK = "roi_head.mask_head"
+_SHARED = "roi_head.shared_head"
 _UPSAMPLE = "mask_head/upsample"  # the one transposed conv
+L2_NORM = ("neck/l2_norm", "neck.l2_norm.weight")  # SSD's bare parameter, both names
+
+# SSD's VGG: mmdet's ``features`` index of JAX's conv{i} (13 convs, ReLUs and
+# ceil-mode pools between them), fc6 and fc7 (ssd_vgg.py)
+VGG_FEATURES = {**{f"conv{i}": idx for i, idx in enumerate(
+    (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28))}, "fc6": 31, "fc7": 33}
+_VGG_NAMES = {idx: name for name, idx in VGG_FEATURES.items()}
+
+_SSD_MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
+    (r"backbone/(conv\d+|fc6|fc7)", lambda m, _: f"backbone.features.{VGG_FEATURES[m[1]]}"),
+    (r"neck/extra(\d+)_([12])", lambda m, _: f"neck.extra_layers.{m[1]}.{int(m[2]) - 1}.conv"),
+    (r"bbox_head/(cls|reg)_conv(\d+)", lambda m, _: f"bbox_head.{m[1]}_convs.{m[2]}.0"),
+]
 
 # (JAX module path pattern, port module name template); first match wins
 _MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
@@ -43,6 +71,15 @@ _MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
     (r"backbone/layer(\d+)_(\d+)/(conv\d|bn\d)",
      lambda m, _: f"backbone.layer{m[1]}.{m[2]}.{m[3]}"),
     (r"backbone/(conv1|bn1)", lambda m, _: f"backbone.{m[1]}"),
+    (r"bbox_head/shared_head/layer(\d+)_(\d+)/downsample_conv",
+     lambda m, _: f"{_SHARED}.layer{m[1]}.{m[2]}.downsample.0"),
+    (r"bbox_head/shared_head/layer(\d+)_(\d+)/downsample_bn",
+     lambda m, _: f"{_SHARED}.layer{m[1]}.{m[2]}.downsample.1"),
+    (r"bbox_head/shared_head/layer(\d+)_(\d+)/(conv\d|bn\d)",
+     lambda m, _: f"{_SHARED}.layer{m[1]}.{m[2]}.{m[3]}"),
+    (r"bbox_head/(fc_cls|fc_reg)", lambda m, _: f"{_BBOX}.{m[1]}"),
+    (r"bbox_head/(cls|reg)_conv(\d+)", lambda m, _: f"bbox_head.{m[1]}_convs.{m[2]}.conv"),
+    (r"bbox_head/(retina_cls|retina_reg)", lambda m, _: f"bbox_head.{m[1]}"),
     (r"neck/lateral_conv(\d+)", lambda m, _: f"neck.lateral_convs.{m[1]}.conv"),
     (r"neck/fpn_conv(\d+)", lambda m, _: f"neck.fpn_convs.{m[1]}.conv"),
     (r"rpn_head/(rpn_conv|rpn_cls|rpn_reg)", lambda m, _: f"rpn_head.{m[1]}"),
@@ -69,6 +106,17 @@ _JAX_MODULES: List[Tuple[str, Callable[[re.Match, int], str]]] = [
      lambda m, _: f"backbone/layer{m[1]}_{m[2]}/downsample_bn"),
     (r"backbone\.layer(\d+)\.(\d+)\.(conv\d|bn\d)", lambda m, _: f"backbone/layer{m[1]}_{m[2]}/{m[3]}"),
     (r"backbone\.(conv1|bn1)", lambda m, _: f"backbone/{m[1]}"),
+    (r"backbone\.features\.(\d+)", lambda m, _: f"backbone/{_VGG_NAMES[int(m[1])]}"),
+    (rf"{_SHARED}\.layer(\d+)\.(\d+)\.downsample\.0",
+     lambda m, _: f"bbox_head/shared_head/layer{m[1]}_{m[2]}/downsample_conv"),
+    (rf"{_SHARED}\.layer(\d+)\.(\d+)\.downsample\.1",
+     lambda m, _: f"bbox_head/shared_head/layer{m[1]}_{m[2]}/downsample_bn"),
+    (rf"{_SHARED}\.layer(\d+)\.(\d+)\.(conv\d|bn\d)",
+     lambda m, _: f"bbox_head/shared_head/layer{m[1]}_{m[2]}/{m[3]}"),
+    (rf"{_BBOX}\.(fc_cls|fc_reg)", lambda m, _: f"bbox_head/{m[1]}"),
+    (r"bbox_head\.(cls|reg)_convs\.(\d+)\.(?:conv|0)", lambda m, _: f"bbox_head/{m[1]}_conv{m[2]}"),
+    (r"bbox_head\.(retina_cls|retina_reg)", lambda m, _: f"bbox_head/{m[1]}"),
+    (r"neck\.extra_layers\.(\d+)\.([01])\.conv", lambda m, _: f"neck/extra{m[1]}_{int(m[2]) + 1}"),
     (r"neck\.lateral_convs\.(\d+)\.conv", lambda m, _: f"neck/lateral_conv{m[1]}"),
     (r"neck\.fpn_convs\.(\d+)\.conv", lambda m, _: f"neck/fpn_conv{m[1]}"),
     (r"rpn_head\.(rpn_conv|rpn_cls|rpn_reg)", lambda m, _: f"rpn_head/{m[1]}"),
@@ -90,8 +138,8 @@ _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def _module_name(path: str, n_tasks: int) -> str:
-    for pattern, name in _MODULES:
+def _module_name(path: str, n_tasks: int, ssd: bool = False) -> str:
+    for pattern, name in (_SSD_MODULES if ssd else []) + _MODULES:
         m = re.fullmatch(pattern, path)
         if m:
             return name(m, n_tasks)
@@ -137,6 +185,8 @@ def jax_path_from_port(name: str, n_tasks: int) -> str:
     """Port parameter name (``backbone.layer2.0.conv1.weight``) → JAX
     parameter path (``backbone/layer2_0/conv1/kernel``): the inverse of
     :func:`port_name_from_jax`. A norm's weight is JAX's ``scale``."""
+    if name == L2_NORM[1]:
+        return L2_NORM[0]
     module, leaf = name.rsplit(".", 1)
     jax_module = _jax_module(module, n_tasks)
     if leaf == "bias":
@@ -186,13 +236,17 @@ def state_dict_from_jax(
     """Flat JAX params and batch stats → the port's (mmdet-named) state dict."""
     n_tasks = sum(bool(re.fullmatch(r"(bbox_head|cascade_head0)/fc_cls\d+/kernel", k))
                   for k in params_flat)
+    ssd = L2_NORM[0] in params_flat
     out: Dict[str, torch.Tensor] = {}
     for flat, leaves in ((params_flat, _PARAM_LEAVES), (stats_flat, _STAT_LEAVES)):
         for key, arr in flat.items():
+            if key == L2_NORM[0] and flat is params_flat:
+                out[L2_NORM[1]] = torch.tensor(np.asarray(arr, dtype=np.float32))
+                continue
             path, leaf = key.rsplit("/", 1)
             if leaf not in leaves:
                 raise KeyError(f"unknown leaf {leaf!r} in {key!r}")
-            name = f"{_module_name(path, n_tasks)}.{leaves[leaf]}"
+            name = f"{_module_name(path, n_tasks, ssd)}.{leaves[leaf]}"
             arr = _to_torch_layout(path, leaf, np.asarray(arr, dtype=np.float32))
             out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -131,12 +131,12 @@ def test_init_detector_loads_jax_npz_and_pth(tmp_path):
 
 
 def test_unported_options_raise():
-    """What is not ported raises, naming ROADMAP.md: here the model zoo's
-    RetinaNet. The two predict options that raised here before
+    """What is unknown raises: an rpn_nms_impl and a model type (ValueError,
+    as in JAX). The two predict options that raised here before
     (rpn_nms_impl='matrix', nms_type='soft_nms') are ported
     (tests/test_torch_api.py holds them against JAX): predict runs with
-    each and returns the padded detections, and an unknown rpn_nms_impl
-    raises."""
+    each and returns the padded detections. RetinaNet, which raised here
+    too, builds (tests/test_torch_single_stage.py)."""
     from nsgp_repre_tpu_torch.models.zoo import build_config
 
     for kw in (dict(rpn_nms_impl="matrix"), dict(nms_type="soft_nms"),
@@ -154,8 +154,9 @@ def test_unported_options_raise():
         dets = m.predict(batch)
         assert dets.boxes.shape == (1, 4, 4) and bool(torch.isfinite(dets.boxes).all())
     model = load_config("cl_faster_rcnn_cfgs/_base_/models/retinanet_r50_fpn.py")["model"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_config(model)
+    assert build_config(model)[0].__name__ == "RetinaNet"
+    with pytest.raises(ValueError, match="unsupported model type"):
+        build_config(dict(model, type="YOLOV3"))
 
 
 def test_pack_images_and_inference_api():

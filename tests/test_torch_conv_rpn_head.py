@@ -87,6 +87,36 @@ def test_plain_matches_pallas_bf16(kernel):
                                atol=2e-2 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rpn_head_plain_matches_pallas_wide(dtype):
+    """The C4 head's widths: C = F = 1024 channels (the Pallas kernel takes
+    F = C), 15 anchors (P = 75 packed columns, the Pallas kernel's padded
+    to 128), on a tiny map, the plain version against the Pallas kernel in
+    interpret mode; f32 to 1e-4, bf16 as test_plain_matches_pallas_bf16."""
+    f32_matmuls()
+    rng = np.random.RandomState(6)
+    F, a = 1024, 15
+    x = rng.randn(1, 4, 6, F).astype(np.float32)
+    w1 = (rng.randn(3, 3, F, F) / np.sqrt(9 * F)).astype(np.float32)
+    b1 = rng.randn(F).astype(np.float32) * 0.1
+    wcr = (rng.randn(F, 5 * a) / np.sqrt(F)).astype(np.float32)
+    bcr = rng.randn(5 * a).astype(np.float32) * 0.1
+    pad = 128 - 5 * a
+    wcr128 = np.concatenate([wcr, np.zeros((F, pad), np.float32)], 1)
+    bcr128 = np.concatenate([bcr, np.zeros(pad, np.float32)])
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = rpn_head_fused(jnp.asarray(x).astype(jdt), jnp.asarray(w1), jnp.asarray(b1),
+                         jnp.asarray(wcr128), jnp.asarray(bcr128), interpret=True)[..., : 5 * a]
+    got = rpn_head_cuda.rpn_head(_t(x, getattr(torch, dtype)), _t(w1), _t(b1), _t(wcr), _t(bcr))
+    assert got.shape == (1, 4, 6, 5 * a) and got.dtype == getattr(torch, dtype)
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-2,
+                                   atol=2e-2 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("C", [64, 40])
 def test_kmajor_weight_layout_is_im2col(C):
     """The bf16 kernel's K-major weight (F, 9*Cp), used as a plain im2col

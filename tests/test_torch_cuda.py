@@ -75,6 +75,58 @@ def test_rpn_head_kernel(dev, dt, shape):
     _close(got, rh.rpn_head_plain(x, w, b, wcr, bcr), dt)
 
 
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,F", [((2, 50, 84, 1024), 1024), ((2, 50, 84, 2048), 2048),
+                                     ((1, 7, 9, 64), 512)])
+def test_rpn_head_kernel_wide(dev, dt, shape, F):
+    """The C4 (F = 1024) and DC5 (F = 2048) heads, 15 anchors (P = 75), at
+    the 800x1344 canvas's stride-16 map: the hidden width in 256-wide
+    chunks whose partial 1x1 sums a second launch adds; two calls give
+    the same bits."""
+    g = torch.Generator().manual_seed(11)
+    C, P = shape[-1], 75
+    x = torch.randn(*shape, generator=g).to(dev, dt)
+    w = (torch.randn(3, 3, C, F, generator=g) / (9 * C) ** 0.5).to(dev)
+    b = (torch.randn(F, generator=g) * 0.1).to(dev)
+    wcr = (torch.randn(F, P, generator=g) / F ** 0.5).to(dev)
+    bcr = (torch.randn(P, generator=g) * 0.1).to(dev)
+    before = _ext.LAUNCHES["rpn_head"]
+    got = rh.rpn_head(x, w, b, wcr, bcr)
+    again = rh.rpn_head(x, w, b, wcr, bcr)
+    assert _ext.LAUNCHES["rpn_head"] == before + 2
+    assert got.shape == shape[:3] + (P,) and got.dtype == dt
+    assert torch.equal(got, again)
+    _close(got, rh.rpn_head_plain(x, w, b, wcr, bcr), dt)
+
+
+def test_rpn_head_kernel_fpn_path_unchanged(dev):
+    """F = 256, P = 15 (the FPN head) keeps its one launch, whose blocks
+    write the output themselves: the same bits on every call, and the
+    P <= 128 instantiation (zero columns past 15) agrees on the 15."""
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(1, 38, 64, 256, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(3, 3, 256, 256, generator=g) / 48).to(dev)
+    b = (torch.randn(256, generator=g) * 0.1).to(dev)
+    wcr = (torch.randn(256, 15, generator=g) / 16).to(dev)
+    bcr = (torch.randn(15, generator=g) * 0.1).to(dev)
+    got = rh.rpn_head(x, w, b, wcr, bcr)
+    assert torch.equal(got, rh.rpn_head(x, w, b, wcr, bcr))
+    _close(got, rh.rpn_head_plain(x, w, b, wcr, bcr), torch.bfloat16)
+    wide = torch.cat([wcr, torch.zeros(256, 60, device=dev)], 1)
+    out = rh.rpn_head(x, w, b, wide, torch.cat([bcr, torch.zeros(60, device=dev)]))
+    _close(out[..., :15], got, torch.bfloat16)
+
+
+def test_rpn_head_wrapper_rejects_unsupported_shapes(dev):
+    x = torch.zeros(1, 4, 4, 64, device=dev, dtype=torch.bfloat16)
+    w, b = torch.zeros(3, 3, 64, 384, device=dev), torch.zeros(384, device=dev)
+    with pytest.raises(ValueError, match="chunks of 256"):
+        rh.rpn_head(x, w, b, torch.zeros(384, 15, device=dev), torch.zeros(15, device=dev))
+    w, b = torch.zeros(3, 3, 64, 256, device=dev), torch.zeros(256, device=dev)
+    with pytest.raises(ValueError, match="1 to 128"):
+        rh.rpn_head(x, w, b, torch.zeros(256, 129, device=dev), torch.zeros(129, device=dev))
+
+
 def test_conv_wrapper_rejects_unsupported_shapes(dev):
     x = torch.zeros(1, 4, 4, 12, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C % 8"):
@@ -806,3 +858,89 @@ def test_small_mask_rcnn_step_card_matches_cpu(dev):
                                    "roi_align_bwd": 2, "assign": 1, "gather": 0}
     assert all(torch.isfinite(v).item() for v in losses.values())
     assert not torch.equal(before, card.roi_head.mask_head.conv_logits.weight)
+
+
+def test_small_faster_rcnn_c4_step_card_matches_cpu(dev):
+    """Faster R-CNN C4 (one bottleneck per stage, 4 classes) in f32 at
+    batch 2: the loss terms on the card within 1e-4 relative of the CPU's
+    on the card's proposals; one SGD step launches the fused RPN head at
+    F = 1024 once (the one stride-16 level), the assignment, proposal NMS
+    and RoIAlign forward and backward once (14x14), keeps the terms finite
+    and moves res5."""
+    from nsgp_repre_tpu_torch.engine.train import normalize_images, total_loss, trainable_mask
+    from nsgp_repre_tpu_torch.models.zoo import build_detector
+    from nsgp_repre_tpu_torch.testing import demo_det_batch, draw_priorities, split_losses
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    model_cfg = load_config("cl_faster_rcnn_cfgs/_base_/models/faster-rcnn_r50-caffe-c4.py")["model"]
+    kw = dict(num_classes=4, backbone_blocks=(1, 1, 1, 1), rpn_max_per_img=64, rcnn_num=32,
+              max_per_img=16)
+    cpu, cfg = build_detector(model_cfg, device="cpu", **kw)
+    card, _ = build_detector(model_cfg, device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    batch = demo_det_batch(2, 96, 128, num_instances=(2, 3), num_classes=4, gt_capacity=4, seed=1)
+    n = -(-96 // 16) * -(-128 // 16) * cfg.num_base_priors
+    pri = draw_priorities(cpu, 2, n, 4, torch.Generator().manual_seed(3))
+    got, props = split_losses(card, batch, pri)
+    ref, _ = split_losses(cpu, batch, pri, proposals=props)
+    assert set(ref) == {"loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox", "acc"}
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-4 * max(abs(ref[k]), 1e-3), (k, got[k], ref[k])
+
+    card.train()
+    mask = trainable_mask(card, cfg)
+    opt = torch.optim.SGD([p for n_, p in card.named_parameters() if mask[n_]], lr=0.02,
+                          momentum=0.9)
+    before = card.roi_head.shared_head.layer4[0].conv1.weight.detach().clone()
+    b = batch.to(dev)
+    _ext.reset_launches()
+    losses = card.loss(b.replace(images=normalize_images(b.images)),
+                       priorities={k: v.to(dev) for k, v in pri.items()})
+    total_loss(losses).backward()
+    opt.step()
+    assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 1, "nms": 1, "roi_align": 1,
+                                   "roi_align_bwd": 1, "assign": 1, "gather": 0}
+    assert all(torch.isfinite(v).item() for v in losses.values())
+    assert not torch.equal(before, card.roi_head.shared_head.layer4[0].conv1.weight)
+
+
+@pytest.mark.parametrize("config_file,side,batch", [("retinanet_r50_fpn.py", 128, 2),
+                                                    ("ssd300.py", 300, 2)])
+def test_single_stage_predict_card_matches_cpu(dev, config_file, side, batch):
+    """RetinaNet (one bottleneck per stage) and SSD300 in f32, 4 classes,
+    the same weights on both devices: predict launches the NMS kernel once
+    on the card, and >= 95% of each image's detections have a CPU
+    detection of the same label with boxes within 1e-3 px and a score
+    within 1e-5 (f32 convs summed in other orders can swap near-tied
+    scores across the top-k cut or the NMS order)."""
+    from nsgp_repre_tpu_torch.engine.train import normalize_images
+    from nsgp_repre_tpu_torch.models.zoo import build_detector
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    model_cfg = load_config(f"cl_faster_rcnn_cfgs/_base_/models/{config_file}")["model"]
+    kw = dict(num_classes=4, backbone_blocks=(1, 1, 1, 1), max_per_img=20)
+    cpu, _ = build_detector(model_cfg, device="cpu", **kw)
+    with torch.no_grad():  # scores above the 0.05 threshold (the prior puts them at 0.01)
+        head = getattr(cpu, "bbox_head", None)
+        if hasattr(head, "retina_cls"):
+            head.retina_cls.bias.copy_(-3.0 * torch.rand(head.retina_cls.bias.shape,
+                                                         generator=torch.Generator().manual_seed(5)))
+    card, _ = build_detector(model_cfg, device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    b = demo_det_batch(batch, side, side, num_instances=(2, 3), num_classes=4, gt_capacity=4,
+                       seed=4)
+    bn = b.replace(images=normalize_images(b.images))
+    ref = cpu.predict(bn)
+    _ext.reset_launches()
+    got = card.predict(bn.to(dev)).to("cpu")
+    assert dict(_ext.LAUNCHES) == {"conv3x3": 0, "rpn_head": 0, "nms": 1, "roi_align": 0,
+                                   "roi_align_bwd": 0, "assign": 0, "gather": 0}
+    assert ref.valid.any()
+    for i in range(batch):
+        g, r = got.valid[i], ref.valid[i]
+        assert abs(int(g.sum()) - int(r.sum())) <= 1
+        close = ((got.boxes[i][g][:, None] - ref.boxes[i][r][None]).abs().amax(-1) <= 1e-3) \
+            & (got.labels[i][g][:, None] == ref.labels[i][r][None]) \
+            & ((got.scores[i][g][:, None] - ref.scores[i][r][None]).abs() <= 1e-5)
+        assert float(close.any(1).float().mean()) >= 0.95

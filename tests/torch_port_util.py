@@ -49,6 +49,10 @@ def perturb(params_flat, stats_flat, seed=0, cls_scale=5.0):
                 params[k] = rng.uniform(-0.5, 0.5, v.shape).astype(np.float32)
         elif "/fc_cls" in k and k.endswith("/kernel"):
             params[k] = (v * cls_scale).astype(np.float32)
+        elif k == "bbox_head/retina_cls/bias":
+            # RetinaNet's prior bias puts every score near 0.01, under the
+            # 0.05 score threshold: spread the classes' biases around it
+            params[k] = rng.uniform(-3.0, 0.0, v.shape).astype(np.float32)
     for k, v in stats.items():
         if k.endswith("/mean"):
             stats[k] = rng.uniform(-0.5, 0.5, v.shape).astype(np.float32)
@@ -154,47 +158,75 @@ def port_instances(inst):
 
 # the ReLUs on the gradient path whose inputs both sides can record: the
 # bottlenecks of layer2 on (the stem and layer1 are frozen and cut from the
-# gradient) and the bbox head's two shared FCs. The sparse RPN head's
-# hidden ReLU is computed inside a method on the JAX side and is not
-# recorded here.
+# gradient) and of the C4 head's res5, the bbox head's two shared FCs, the
+# mask head's convs, RetinaNet's towers, and SSD's VGG convs and extra
+# levels. The sparse RPN head's hidden ReLU is computed inside a method on
+# the JAX side and is not recorded here.
 _BN_NAMES = ("bn1", "bn2", "bn3", "downsample_bn")
 _FC_NAMES = ("shared_fc1", "shared_fc2")
+_VGG_NAMES = tuple(f"conv{i}" for i in range(13)) + ("fc6", "fc7")
 
 
 def capture_relu_inputs(module, method_name):
     """capture_intermediates filter for :func:`jax_relu_inputs`."""
     name = module.name or ""
-    return (name in _BN_NAMES or name in _FC_NAMES or name.startswith(("layer", "mask_conv"))
+    return (name in _BN_NAMES or name in _FC_NAMES or name in _VGG_NAMES
+            or name.startswith(("layer", "mask_conv", "cls_conv", "reg_conv", "extra"))
             or name == "upsample")
+
+
+def _block_relus(out, tree, prefix, skip):
+    """The bottleneck ReLUs of the ``layer{s}_{b}`` blocks in ``tree``:
+    bn1 and bn2 outputs, bn3 output plus the identity (downsample_bn
+    output, else the previous block's output); blocks whose name starts
+    with ``skip`` are left out."""
+    blocks = sorted((k for k in tree if k.startswith("layer")),
+                    key=lambda k: tuple(int(x) for x in k[5:].split("_")))
+    prev = None
+    for blk in blocks:
+        d = tree[blk]
+        if not (skip and blk.startswith(skip)):
+            ident = d["downsample_bn"]["__call__"][0] if "downsample_bn" in d else prev
+            for i, pre in ((1, d["bn1"]["__call__"][0]), (2, d["bn2"]["__call__"][0]),
+                           (3, d["bn3"]["__call__"][0] + ident)):
+                out.setdefault(f"{prefix}{blk}/relu{i}", []).append(np.asarray(pre))
+        prev = d["__call__"][0]
+
+
+def _calls(out, key, d):
+    out.setdefault(key, []).extend(np.asarray(x) for x in d["__call__"])
 
 
 def jax_relu_inputs(intermediates):
     """{ReLU: [its input at each call, NHWC or (rows, units)]} from the
     intermediates that capture_relu_inputs captured (a list of applies'
-    captures): bn1 and bn2 outputs, bn3 output plus the identity
-    (downsample_bn output, else the previous block's output), the shared
-    FCs' outputs."""
+    captures): the bottlenecks' (backbone from layer2, the C4 head's
+    res5), the shared FCs' outputs, the mask head's, RetinaNet's tower
+    convs' (each level a call), SSD's VGG convs' and extra levels'."""
     out = {}
     for inter in intermediates:
         bb = inter.get("backbone", {})
-        blocks = sorted((k for k in bb if k.startswith("layer")),
-                        key=lambda k: tuple(int(x) for x in k[5:].split("_")))
-        prev = None
-        for blk in blocks:
-            d = bb[blk]
-            if not blk.startswith("layer1_"):
-                ident = d["downsample_bn"]["__call__"][0] if "downsample_bn" in d else prev
-                for i, pre in ((1, d["bn1"]["__call__"][0]), (2, d["bn2"]["__call__"][0]),
-                               (3, d["bn3"]["__call__"][0] + ident)):
-                    out.setdefault(f"{blk}/relu{i}", []).append(np.asarray(pre))
-            prev = d["__call__"][0]
+        _block_relus(out, bb, "", "layer1_")
+        if "fc6" in bb:  # SSD's VGG (a ResNet's stem is a conv1 too, with no ReLU recorded)
+            for name in _VGG_NAMES:
+                _calls(out, f"backbone/{name}", bb[name])
+        for name, d in sorted(inter.get("neck", {}).items()):
+            if name.startswith("extra"):
+                _calls(out, f"neck/{name}", d)
         if "mask_head" in inter:
             for name, d in inter["mask_head"].items():
-                out.setdefault(f"mask_head/{name}", []).extend(np.asarray(x) for x in d["__call__"])
+                _calls(out, f"mask_head/{name}", d)
         for head in sorted(k for k in inter if k == "bbox_head" or k.startswith("cascade_head")):
+            h = inter[head]
             for n in _FC_NAMES:
-                out.setdefault(f"{head}/{n}", []).extend(
-                    np.asarray(x) for x in inter[head][n]["__call__"])
+                if n in h:
+                    _calls(out, f"{head}/{n}", h[n])
+            if "shared_head" in h:
+                _block_relus(out, h["shared_head"], "shared_head/", None)
+            if "fc6" not in bb:  # RetinaNet's towers; SSD's cls/reg convs have no ReLU
+                for name, d in sorted(h.items()):
+                    if name.startswith(("cls_conv", "reg_conv")):
+                        _calls(out, f"bbox_head/{name}", d)
     return out
 
 
@@ -220,11 +252,11 @@ class PortReluInputs:
             t = t.permute(0, 2, 3, 1)
         self.out.setdefault(key, []).append(t.detach().float().numpy().copy())
 
-    def __enter__(self):
-        hooks, bb = [], self.port.backbone
-        for stage in bb.stage_names[1:]:
-            for i, blk in enumerate(getattr(bb, stage)):
-                key = f"{stage}_{i}"
+    def _block_hooks(self, owner, stages, prefix):
+        hooks = []
+        for stage in stages:
+            for i, blk in enumerate(getattr(owner, stage)):
+                key = f"{prefix}{stage}_{i}"
                 seen = {}
                 hooks += [
                     blk.bn1.register_forward_hook(
@@ -240,13 +272,37 @@ class PortReluInputs:
                 hooks.append(blk.register_forward_hook(
                     lambda m, a, y, k=key, s=seen, ds=blk.downsample is not None: self._add(
                         f"{k}/relu3", s["y3"] + (s["ident"] if ds else s["x"]))))
-        if hasattr(self.port.roi_head, "mask_head"):
+        return hooks
+
+    def _output_hook(self, module, key):
+        return module.register_forward_hook(lambda m, a, y, k=key: self._add(k, y))
+
+    def __enter__(self):
+        from nsgp_repre_tpu_torch.utils.convert import VGG_FEATURES
+
+        port, bb = self.port, self.port.backbone
+        hooks = self._block_hooks(bb, getattr(bb, "stage_names", [])[1:], "")
+        if hasattr(bb, "features"):  # SSD's VGG and extra levels
+            hooks += [self._output_hook(bb.features[idx], f"backbone/{name}")
+                      for name, idx in VGG_FEATURES.items()]
+            hooks += [self._output_hook(conv.conv, f"neck/extra{i}_{j + 1}")
+                      for i, layer in enumerate(port.neck.extra_layers)
+                      for j, conv in enumerate(layer)]
+        head = getattr(port, "bbox_head", None)
+        if hasattr(head, "retina_cls"):
+            hooks += [self._output_hook(m.conv, f"bbox_head/{kind}_conv{i}")
+                      for kind in ("cls", "reg")
+                      for i, m in enumerate(getattr(head, f"{kind}_convs"))]
+        roi_head = getattr(port, "roi_head", None)
+        if hasattr(roi_head, "shared_head"):
+            hooks += self._block_hooks(roi_head.shared_head, ["layer4"], "shared_head/")
+        if hasattr(roi_head, "mask_head"):
             mh = self.port.roi_head.mask_head
             for name, m in [(f"mask_conv{i}", c.conv) for i, c in enumerate(mh.convs)] + [
                     ("upsample", mh.upsample)]:
                 hooks.append(m.register_forward_hook(
                     lambda m, a, y, k=f"mask_head/{name}": self._add(k, y)))
-        for head, bbox_head in _port_heads(self.port):
+        for head, bbox_head in (_port_heads(port) if roi_head is not None else []):
             for n, fc in zip(_FC_NAMES, bbox_head.shared_fcs):
                 hooks.append(fc.register_forward_hook(
                     lambda m, a, y, k=f"{head}/{n}": self._add(k, y)))
@@ -299,7 +355,26 @@ def flip_slack(flips, name):
     for key, (n, positions) in flips.items():
         if not n:
             continue
-        if key.startswith("mask_head/"):
+        if key.startswith("shared_head/"):  # the C4 head's res5 blocks
+            blk = int(key.split("/")[1].split("_")[1])
+            upstream = name.startswith("backbone.") or (
+                name.startswith("roi_head.shared_head.layer4.")
+                and int(name.split(".")[3]) <= blk)
+        elif key.startswith(("bbox_head/cls_conv", "bbox_head/reg_conv")):  # RetinaNet's towers
+            kind, i = key[10:13], int(key.split("conv")[-1])
+            upstream = name.startswith(("backbone.", "neck.")) or (
+                name.startswith(f"bbox_head.{kind}_convs.") and int(name.split(".")[2]) <= i)
+        elif key.startswith("backbone/") and key[9:] in _VGG_NAMES:  # SSD's VGG
+            from nsgp_repre_tpu_torch.utils.convert import VGG_FEATURES
+
+            upstream = name.startswith("backbone.features.") and \
+                int(name.split(".")[2]) <= VGG_FEATURES[key[9:]]
+        elif key.startswith("neck/extra"):  # SSD's extra levels
+            i, j = (int(x) for x in key[10:].split("_"))
+            upstream = name.startswith("backbone.") or (
+                name.startswith("neck.extra_layers.")
+                and tuple(int(x) for x in name.split(".")[2:4]) <= (i, j - 1))
+        elif key.startswith("mask_head/"):
             # the convs up to this ReLU's (the upsample's: all of them)
             last = int(key[19:]) if key.startswith("mask_head/mask_conv") else 99
             mine = (name.startswith("roi_head.mask_head.upsample.") and last == 99) or (
@@ -347,11 +422,12 @@ def zoo_jax_and_port(config_file, num_classes=4, image_hw=(64, 64), seed=0, **ov
     model, _ = jax_build_detector(model_cfg, num_classes=num_classes, **kw)
     variables = jax.jit(model.init)(
         jax.random.PRNGKey(seed), jnp.zeros((1,) + tuple(image_hw) + (3,), jnp.float32))
+    stats = variables.get("batch_stats", {})  # SSD's VGG has no BN
     params_flat, stats_flat = perturb(
-        _flatten_tree(variables["params"]), _flatten_tree(variables["batch_stats"]), seed)
+        _flatten_tree(variables["params"]), _flatten_tree(stats), seed)
     variables = {
         "params": restore_into(variables["params"], params_flat),
-        "batch_stats": restore_into(variables["batch_stats"], stats_flat),
+        "batch_stats": restore_into(stats, stats_flat) if stats_flat else {},
     }
     cls, cfg = build_config(model_cfg, num_classes, **kw)
     port = cls(cfg)
@@ -371,20 +447,23 @@ def _uniform_per_image(key, batch_size, n):
 def zoo_priorities(kind, rng, cfg, batch_size, hw, gt_slots, n_proposals=None):
     """The port's sampling priorities for one JAX loss key of a model-zoo
     family (``kind``: the port class name), in the order the JAX family
-    splits its key: RPN hands it to the RPN whole; Fast R-CNN to the RoI
-    sampler whole (``n_proposals`` external proposals); Faster and Mask
-    R-CNN split it in two (RPN, RoI head); the cascade splits it into
+    splits its key: RetinaNet and SSD draw nothing; RPN (and RPNC4) hands
+    it to the RPN whole; Fast R-CNN to the RoI sampler whole
+    (``n_proposals`` external proposals); Faster and Mask R-CNN and the C4
+    and DC5 families split it in two (RPN, RoI head); the cascade splits it into
     num_stages + 1 (RPN, then each stage), and the cascade with a mask
     head first splits it in two (the cascade's, the mask sample's)."""
+    if kind in ("RetinaNet", "SSD"):
+        return {}
     A = cfg.num_base_priors
     N = sum(-(-hw[0] // s) * -(-hw[1] // s) * A for s in cfg.anchor_strides)
     rpn = lambda k: _uniform_per_image(k, batch_size, N)[0]  # noqa: E731
-    if kind == "RPN":
+    if kind in ("RPN", "RPNC4"):
         return {"rpn": rpn(rng)}
     if kind == "FastRCNN":
         u, u2 = _uniform_per_image(rng, batch_size, gt_slots + n_proposals)
         return {"roi": u, "roi2": u2}
-    if kind in ("FasterRCNN", "MaskRCNN"):
+    if kind in ("FasterRCNN", "MaskRCNN", "FasterRCNNC4", "FasterRCNNDC5", "MaskRCNNC4"):
         k1, k2 = jax.random.split(rng)
         u, u2 = _uniform_per_image(k2, batch_size, gt_slots + cfg.rpn_max_per_img)
         return {"rpn": rpn(k1), "roi": u, "roi2": u2}
