@@ -108,7 +108,25 @@ Phases, each of which raises on a failed check (exit code 1):
    f32 pair keeps 100 proposals, as the CPU runs res5 on each), f32
    detections matched >= 95% and Mask R-CNN C4's probabilities on the
    card's boxes within 1e-3; step, predict times, peak memory, a profile
-   of each path.
+   of each path;
+11. data parallel (parallel/mesh.py), on the train phase's weights, batch
+   and draws: (a) world 1 through NCCL in this process, 3 bf16 steps at
+   batch 16 after a warm-up step with a process group of one up, against
+   the same without (before and after, with deterministic cuDNN and
+   algorithms): the weights and
+   metrics bit-equal, every training kernel launched in each step, the
+   steps' times and the all-reduce's device time; (b) world 2 on the one
+   card through gloo, two child processes (``--dp-child``) on cuda:0: the
+   f32 pass at global batch 2 (one image per rank; one step, one
+   covariance batch, one RoI-store batch) against world 1 at batch 2 (loss
+   terms within 1e-5, updates within 4x their f32 noise floor,
+   covariances within 1e-5, the RoI rows in order), then 3 bf16 steps at
+   batch 16 (8 images per rank) with finite terms and every training
+   kernel launched in each rank; the step times are gloo's on one card,
+   not a DDP speed. NCCL at world > 1 needs one card per rank.
+
+``python3 chip_smoke.py --phase 11`` builds the kernels and runs phase 11
+alone on the weights it starts from, and prints no result line.
 
 The last lines are one JSON object with the whole run's seconds, the card
 line, one JSON object listing the kernels, and ``{"ok": true, "device":
@@ -763,24 +781,33 @@ def profile_call(torch, fn, label: str) -> None:
              ("(anonymous namespace)::", "void (anonymous namespace)::"))]})
 
 
-def slice_phase(torch, card: str):
+def slice_weights(torch, imgs):
+    """The 15+5 config's seeded, conditioned weights as a CPU state dict
+    (every later phase starts from them), and the f32 and bf16 configs and
+    predictors."""
     import copy
 
-    from nsgp_repre_tpu_torch.apis.inference import _pack_images, inference_detector, init_detector
-    from nsgp_repre_tpu_torch.ops import _ext
+    from nsgp_repre_tpu_torch.apis.inference import _pack_images, init_detector
     from nsgp_repre_tpu_torch.utils.config import load_config
 
     cfg16 = load_config(CONFIG)
     check("config", cfg16.get("compute_dtype") == "bfloat16", cfg16.get("compute_dtype"))
     cfg32 = copy.deepcopy(cfg16)
     cfg32["compute_dtype"] = "float32"
-    imgs = seeded_images(16, SEED)
-
-    t0 = time.perf_counter()
     det32 = init_detector(cfg32, device="cuda", seed=SEED)
     check("model", tuple(det32.model.config.backbone_blocks) == (3, 4, 6, 3), "not R-50")
     condition_weights(torch, det32.model, _pack_images(det32, imgs[:1]).images)
     state = {k: v.detach().cpu().clone() for k, v in det32.model.state_dict().items()}
+    return state, cfg16, cfg32, det32
+
+
+def slice_phase(torch, card: str):
+    from nsgp_repre_tpu_torch.apis.inference import inference_detector, init_detector
+    from nsgp_repre_tpu_torch.ops import _ext
+
+    imgs = seeded_images(16, SEED)
+    t0 = time.perf_counter()
+    state, cfg16, cfg32, det32 = slice_weights(torch, imgs)
     det16 = init_detector(cfg16, device="cuda", seed=SEED)
     det16.model.load_state_dict(state)
     log({"phase": "init", "seconds": time.perf_counter() - t0,
@@ -2915,8 +2942,328 @@ def zoo_rest_phase(torch, dev, card: str):
     return results, paths
 
 
+# ---------------------------------------------------------------------------
+# data parallel (parallel/mesh.py): world 1 through NCCL, world 2 through gloo
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT_S = 300  # a child's collectives, and rank 1's wait for rank 0 to join
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_bf16_steps(torch, state, label: str, n: int, warmup: int = 0):
+    """``n`` bf16 make_train_step steps of the 15+5 task-1 config from
+    ``state`` on this rank's rows of the train phase's batch (16 images,
+    its boxes and draws), after ``warmup`` untimed ones: the model, each
+    step's launches (checked against EXPECTED_TRAIN), the summed launches,
+    the host-clock step times and the last metrics."""
+    from nsgp_repre_tpu_torch.apis.inference import init_detector
+    from nsgp_repre_tpu_torch.engine.runner import build_train_optimizer
+    from nsgp_repre_tpu_torch.engine.train import TrainState, make_train_step
+    from nsgp_repre_tpu_torch.ops import _ext
+    from nsgp_repre_tpu_torch.parallel import mesh
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    cfg16 = load_config(CONFIG)
+    model = init_detector(cfg16, device="cuda", seed=SEED).model
+    model.load_state_dict(state)
+    mesh.replicate(model)
+    batch = demo_det_batch(TRAIN_BATCH, *CANVAS, num_instances=tuple(range(1, 9)),
+                           num_classes=15, gt_capacity=GT_CAPACITY, seed=SEED, device="cuda")
+    batch = mesh.shard_rows(batch, mesh.rank(), mesh.world_size())
+    opt = build_train_optimizer(cfg16, model, STEPS_PER_EPOCH)
+    step, st = make_train_step(model, opt), TrainState(opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for _ in range(warmup):
+        st, _ = step(st, batch, gen)
+    times, total, metrics = [], {k: 0 for k in KERNELS}, None
+    for i in range(n):
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        st, metrics = step(st, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_ext.LAUNCHES)
+        check(f"{label} step {i} launches", launches == EXPECTED_TRAIN,
+              f"{launches} != {EXPECTED_TRAIN}")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).item()]
+        check(f"{label} step {i}", not bad, f"non-finite {bad}")
+    return model, (step, st, batch, gen), total, times, {k: float(v) for k, v in metrics.items()}
+
+
+def dp_f32_pass(torch, state):
+    """This rank's share of one f32 pass at global batch 2 (one image per
+    rank at world 2, both at world 1): one train step, then one
+    covariance batch and one RoI-store batch on the stepped weights, all
+    on the same global draws. Returns the loss terms, the step's update
+    of every parameter, the covariances and the RoI store's rows."""
+    from nsgp_repre_tpu_torch.apis.inference import init_detector
+    from nsgp_repre_tpu_torch.engine.runner import build_train_optimizer
+    from nsgp_repre_tpu_torch.engine.train import (TrainState, make_cov_step,
+                                                   make_roi_extract_step, make_train_step)
+    from nsgp_repre_tpu_torch.parallel import mesh
+    from nsgp_repre_tpu_torch.testing import demo_det_batch
+    from nsgp_repre_tpu_torch.utils.config import load_config
+
+    cfg32 = load_config(CONFIG)
+    cfg32["compute_dtype"] = "float32"
+    model = init_detector(cfg32, device="cuda", seed=SEED).model
+    model.load_state_dict(state)
+    mesh.replicate(model)
+    W, r = mesh.world_size(), mesh.rank()
+    full = demo_det_batch(2, *CANVAS, num_instances=(6, 2), num_classes=15,
+                          gt_capacity=GT_CAPACITY, seed=SEED + 6, device="cuda")
+    batch = mesh.shard_rows(full, r, W)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n_anchors = sum(h * w * A for h, w in level_shapes())
+    n_cand = GT_CAPACITY + model.config.rpn_max_per_img
+    draw = lambda *shape: torch.rand(shape, generator=gen, device="cuda")  # noqa: E731
+    pri = {"rpn": draw(2, n_anchors), "roi": draw(2, n_cand), "roi2": draw(2, n_cand)}
+    pri_cov = {"rpn": draw(2, n_anchors), "roi": draw(2, n_cand), "roi2": draw(2, n_cand)}
+    pri_roi = {"roi": draw(2, n_cand), "roi2": draw(2, n_cand),
+               "cap": draw(2 * model.config.rcnn_num)}
+    opt = build_train_optimizer(cfg32, model, STEPS_PER_EPOCH)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _, metrics = make_train_step(model, opt)(TrainState(opt), batch, priorities=pri)
+    update = {n: p.detach() - before[n] for n, p in model.named_parameters()}
+    cov = make_cov_step(model)(batch, priorities=pri_cov)
+    rois = make_roi_extract_step(model)(batch, priorities=pri_roi)
+    return ({k: float(v) for k, v in metrics.items()}, update, cov, rois)
+
+
+def dp_child(rank: int, tmp: str) -> int:
+    """One rank of phase 11's world 2 (``chip_smoke.py --dp-child RANK
+    DIR``): both ranks on cuda:0, gloo. Rank 0 first runs the f32 pass at
+    world 1 (and once more on jittered weights, for the noise floor of the
+    updates) before it joins; then both run it at world 2, rank 0 holds
+    the two against each other, and both take 3 bf16 steps at batch 16 (8
+    images each). Writes DIR/rank<R>.json."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        import torch.distributed as dist
+
+        from nsgp_repre_tpu_torch.ops import _ext
+        from nsgp_repre_tpu_torch.parallel import mesh
+
+        _ext.lib()
+        state = torch.load(os.path.join(tmp, "state.pt"))
+        ref = jit = None
+        if rank == 0:
+            ref = dp_f32_pass(torch, state)
+            g = torch.Generator().manual_seed(SEED + 5)
+            jit = dp_f32_pass(torch, {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g))
+                                      if v.is_floating_point() else v for k, v in state.items()})
+        os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK="0")
+        mesh.maybe_init_distributed("gloo", "cuda:0", init_method=f"file://{tmp}/init",
+                                    timeout_s=DP_TIMEOUT_S)
+        check("world", mesh.world_size() == 2 and mesh.rank() == rank, mesh.world_size())
+        t0 = time.perf_counter()
+        got = dp_f32_pass(torch, state)
+        out = {"rank": rank, "f32_pass_s": time.perf_counter() - t0, "losses": got[0]}
+        sums = mesh.all_gather_rows([np.array([float(u.double().sum()) for u in got[1].values()])])[0]
+        check("replicas", np.array_equal(sums[:len(sums) // 2], sums[len(sums) // 2:]),
+              "the ranks' updates differ")
+        if rank == 0:
+            out.update(dp_compare(torch, ref, jit, got))
+        del ref, jit, got
+        torch.cuda.empty_cache()
+        model, _, launches, times, metrics = dp_bf16_steps(torch, state, f"gloo rank {rank}", 3,
+                                                           warmup=1)
+        out.update({"bf16_launches": launches, "bf16_step_ms": times, "bf16_losses": metrics,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        mesh.barrier("done")
+        dist.destroy_process_group()
+        return 0
+    except Exception:  # noqa: BLE001 — reported to the parent through the exit code
+        traceback.print_exc()
+        return 1
+
+
+def dp_compare(torch, ref, jit, got) -> dict:
+    """World 2 (``got``) against world 1 (``ref``) on the same card: loss
+    terms within 1e-5 relative (acc within 2 of 512 RoIs); each update
+    within 4x its module group's f32 noise floor, the floor being how far
+    world 1's update moves when every weight is scaled by (1 + 1e-7 N(0,
+    1)) (``jit``; the train phase's card-vs-CPU rule); covariances within
+    1e-5 of each matrix's largest entry; the RoI store's rows in the same
+    order: labels and weights exact, features, targets and boxes within
+    1e-4 of their largest magnitude."""
+    (l1, u1, c1, r1), (_, uj, _, _), (l2, u2, c2, r2) = ref, jit, got
+    loss_rel = {k: abs(l2[k] - l1[k]) / (1.0 if k == "acc" else max(abs(l1[k]), 1e-3))
+                for k in l1}
+    for k, v in loss_rel.items():
+        check(f"dp f32 {k}", v <= (2.0 / 512 if k == "acc" else 1e-5), f"{l2[k]} vs {l1[k]}")
+
+    def rel(a, b):
+        return {k: (a[k] - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
+                for k in b}
+
+    group = lambda k: ".".join(k.split(".")[:2])  # noqa: E731
+    floor = {}
+    for k, v in rel(uj, u1).items():
+        floor[group(k)] = max(floor.get(group(k), 0.0), v)
+    ratio = {}
+    for k, v in rel(u2, u1).items():
+        tol = 4 * floor[group(k)]
+        ratio[k] = v / tol if tol > 0 else (0.0 if v == 0 else float("inf"))
+    worst = sorted(ratio.items(), key=lambda kv: -kv[1])[:5]
+    check("dp f32 updates", worst[0][1] <= 1.0, f"worst (name, err/tol) {worst}")
+    check("dp covariance keys", c1.keys() == c2.keys() and len(c1) > 0, len(c2))
+    cov_rel = max(rel(c2, c1).values())
+    check("dp covariance", cov_rel <= 1e-5, cov_rel)
+    names = ("feats", "labels", "cls_w", "targets", "bbox_w", "rois", "valid")
+    roi_err = {}
+    for name, a, b in zip(names, r2, r1):
+        check(f"dp rois {name} shape", a.shape == b.shape, (a.shape, b.shape))
+        if not a.is_floating_point() or name in ("cls_w", "bbox_w"):
+            check(f"dp rois {name}", torch.equal(a, b), name)
+        else:
+            roi_err[name] = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            check(f"dp rois {name}", roi_err[name] <= 1e-4, roi_err[name])
+    return {"loss_rel_err": loss_rel, "update_worst_err_over_tol": worst,
+            "update_noise_floor_by_group": floor, "cov_max_rel_err": cov_rel,
+            "cov_layers": len(c1), "rois_rel_err": roi_err, "rois_rows": int(r1[0].shape[0])}
+
+
+def data_parallel_phase(torch, card: str, state):
+    """Phase 11. (a) World 1 through NCCL in this process: 3 bf16 steps at
+    batch 16 with a process group of one up, against 3 without (before and
+    after), all deterministic: the weights bit-equal, each step's launches,
+    the steps' times and the all-reduce's device time from one profiled
+    step. (b) World 2 on the one card through gloo: two children (see
+    :func:`dp_child`), each failing the phase on a failed check, a non-zero
+    exit or a hang. Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for label in ("plain", "nccl world 1", "plain again"):
+            if label == "nccl world 1":
+                os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+                dist.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+            model, rest, launches, times, metrics = dp_bf16_steps(torch, state, label, 3,
+                                                                  warmup=1)
+            runs[label] = dict(params={n: p.detach().clone() for n, p in model.named_parameters()},
+                               launches=launches, times=times, metrics=metrics)
+            if label == "nccl world 1":
+                # one more step, profiled: the NCCL kernels' device time (a
+                # one-rank all-reduce in place may launch none) and the
+                # collectives' host-side ops, which must be there
+                step, st, batch, gen = rest
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    step(st, batch, gen)
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                allreduce = {"device_ms": sum(
+                    e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+                    and "nccl" in e.key.lower()) / 1e3,
+                    "device_kernels": sorted({e.key[:80] for e in events if e.device_type
+                                              == DeviceType.CUDA and "nccl" in e.key.lower()}),
+                    "host_ops": {e.key: {"calls": e.count, "host_ms": e.cpu_time_total / 1e3}
+                                 for e in events if e.device_type == DeviceType.CPU
+                                 and "allreduce" in e.key.lower().replace("_", "")}}
+                check("nccl all-reduce ran", allreduce["host_ops"], "no all-reduce op recorded")
+                dist.destroy_process_group()
+            del model, rest
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    plain, again, nccl = runs["plain"], runs["plain again"], runs["nccl world 1"]
+    same = lambda a, b: all(torch.equal(a[n], b[n]) for n in a)  # noqa: E731
+    check("plain steps reproducible", same(plain["params"], again["params"]),
+          "two plain runs differ")
+    check("nccl world 1 bit-equal", same(nccl["params"], plain["params"]),
+          "a world of one moved the weights")
+    check("nccl world 1 metrics", nccl["metrics"] == plain["metrics"],
+          f"{nccl['metrics']} != {plain['metrics']}")
+    log({"phase": "data parallel: nccl world 1", "card": card,
+         "launches_3_steps": nccl["launches"], "params_bit_equal": True,
+         "step_ms_median": {k: statistics.median(r["times"]) for k, r in runs.items()},
+         "step_ms_all": {k: r["times"] for k, r in runs.items()},
+         "allreduce_one_step": allreduce,
+         "measured": "host clock around each bf16 batch-16 step, ending in "
+                     "torch.cuda.synchronize; deterministic cuDNN and algorithms; the "
+                     "all-reduce's device time and host ops from torch.profiler over one "
+                     "more step"})
+    del runs
+
+    tmp = tempfile.mkdtemp(prefix="nsgp_dp_")
+    procs = []
+    try:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        for r in (0, 1):
+            log_f = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-child", str(r), tmp],
+                env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"),  # gloo over loopback only
+                stdout=log_f, stderr=subprocess.STDOUT), log_f))
+        deadline = time.perf_counter() + DP_TIMEOUT_S + 120
+        for r, (p, log_f) in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+            log_f.close()
+            tail = open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
+            check(f"gloo rank {r}", p.returncode == 0, f"exit {p.returncode}: {tail}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in (0, 1)]
+    finally:
+        for p, log_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("gloo metrics", ranks[0]["bf16_losses"] == ranks[1]["bf16_losses"],
+          "the ranks report different global terms")
+    log({"phase": "data parallel: gloo world 2 on one card", "card": card,
+         "f32_batch2": {k: ranks[0][k] for k in (
+             "losses", "loss_rel_err", "update_worst_err_over_tol", "cov_max_rel_err",
+             "cov_layers", "rois_rel_err", "rois_rows", "f32_pass_s")},
+         "bf16_batch16_launches": [r["bf16_launches"] for r in ranks],
+         "bf16_step_ms": [r["bf16_step_ms"] for r in ranks],
+         "bf16_losses_last": ranks[0]["bf16_losses"],
+         "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"] for r in ranks],
+         "measured": "host clock around each step in each rank; two processes sharing one "
+                     "card, gradients all-reduced by gloo through host memory: not a DDP "
+                     "speed",
+         "phase_seconds": time.perf_counter() - t_phase})
+    return {"dp_nccl_world1_3_steps": nccl["launches"],
+            "dp_gloo_rank0_3_steps": ranks[0]["bf16_launches"],
+            "dp_gloo_rank1_3_steps": ranks[1]["bf16_launches"]}
+
+
 def main() -> int:
     t_run = time.perf_counter()
+    if sys.argv[1:2] == ["--dp-child"]:  # one rank of the data-parallel phase
+        return dp_child(int(sys.argv[2]), sys.argv[3])
     try:
         import torch
     except ImportError:
@@ -2955,6 +3302,13 @@ def main() -> int:
         log({"phase": "build", "seconds": time.perf_counter() - t0})
 
         dev = torch.device("cuda")
+        if sys.argv[1:3] == ["--phase", "11"]:  # phase 11 alone, on the weights it starts from
+            t0 = time.perf_counter()
+            state = slice_weights(torch, seeded_images(16, SEED))[0]
+            log({"phase": "init", "seconds": time.perf_counter() - t0})
+            log({"phase": "phase 11 alone", "launches": data_parallel_phase(torch, card, state),
+                 "seconds": time.perf_counter() - t_run})
+            return 0
         results = kernel_phase(torch, dev)
         results.update(gather_phase(torch, dev))
         launches_b1, state = slice_phase(torch, card)
@@ -2967,8 +3321,9 @@ def main() -> int:
         results.update(zoo_results)
         rest_results, rest_paths = zoo_rest_phase(torch, dev, card)
         results.update(rest_results)
+        dp_paths = data_parallel_phase(torch, card, state)
         by_path = {"predict_batch1": launches_b1, "train_step": launches_train, **chain, **runs,
-                   **zoo_paths, **rest_paths}
+                   **zoo_paths, **rest_paths, **dp_paths}
 
         kernels = []
         for name in KERNELS:

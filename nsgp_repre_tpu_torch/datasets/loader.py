@@ -119,9 +119,15 @@ class DetLoader:
         force_flip: overrides every record's flip decision (the teacher
             pseudo-label pre-pass enumerates both variants); the random
             draw is still consumed, so the plan is unchanged.
-
-    One process loads every batch: JAX's ``num_shards``/``shard_id``
-    wait for data parallel (ROADMAP.md, queue 1 item 3).
+        num_shards, shard_id: data-parallel loading (JAX's, loader.py:127-146).
+            ``batch_size`` stays the global batch; every process runs the
+            same seeded plan (records, buckets, flips) and decodes only its
+            contiguous ``local_batch = batch_size / num_shards`` rows of
+            each batch, shard ``shard_id``. The ``BatchMeta`` ids and flips
+            stay global. A last partial batch is padded to ``local_batch``
+            on every shard, so a shard whose rows are all past its end
+            still yields a batch (zero images, no gt) and joins the
+            collectives.
     """
 
     def __init__(
@@ -135,10 +141,17 @@ class DetLoader:
         repeat: int = 1,
         seed: int = 0,
         drop_last: Optional[bool] = None,
+        num_shards: int = 1,
+        shard_id: int = 0,
         force_flip: Optional[bool] = None,
     ):
+        if batch_size % num_shards or not 0 <= shard_id < num_shards:
+            raise ValueError(f"batch {batch_size} over {num_shards} shards, shard {shard_id}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.local_batch = batch_size // num_shards
         self.training = training
         self.gt_capacity = gt_capacity
         self.flip_prob = flip_prob if training else 0.0
@@ -168,10 +181,10 @@ class DetLoader:
         return "landscape" if rec["width"] >= rec["height"] else "portrait"
 
     def _make_batch(self, items: List[tuple], bucket: str) -> DetBatch:
-        """items: [(rec, flip)] of one batch; unused slots of a partial
-        last batch stay zero images with no gt."""
+        """items: [(rec, flip)], this shard's rows of one batch; unused
+        slots of a partial last batch stay zero images with no gt."""
         bh, bw = self.canvas[bucket]
-        B = self.batch_size
+        B = self.local_batch
         images = np.zeros((B, bh, bw, 3), np.uint8)
         img_shape = np.zeros((B, 2), np.int32)
         ori_shape = np.zeros((B, 2), np.int32)
@@ -207,8 +220,10 @@ class DetLoader:
         )
 
     def _emit(self, items: List[tuple], bucket: str):
+        """This shard's rows of the planned batch ``items``, and the global ids."""
         ids = BatchMeta([rec["img_id"] for rec, _ in items], [f for _, f in items])
-        return self._make_batch(items, bucket), ids
+        lo = self.shard_id * self.local_batch
+        return self._make_batch(items[lo:lo + self.local_batch], bucket), ids
 
     def __iter__(self) -> Iterator[Tuple[DetBatch, BatchMeta]]:
         rng = np.random.RandomState(self.seed + self.epoch)

@@ -19,12 +19,20 @@ Counterpart of nsgp_repre_tpu/engine/runner.py:
 
 The runners read and write the JAX package's files (utils/checkpoint.py),
 so a work dir of either package is a ``previous_dir`` of the other. They
-run on ``cuda`` unless a device is named (utils/device.py), on one
-process: several raise (data parallel is ROADMAP.md queue 1 item 3).
+run on ``cuda`` unless a device is named (utils/device.py).
 ``jax.random`` keys become ``torch.Generator`` s on the device, seeded as
 JAX seeds its keys: the train loop ``seed + 1``, the covariance pass
 ``+ 2``, the RoI store ``+ 3``, the importance pass ``+ 4``.
 ``timings`` holds each stage's wall seconds and counts.
+
+Data parallel (parallel/mesh.py; JAX's process-aware paths): with a
+process group up, each rank loads its rows of every global batch
+(``DetLoader(num_shards, shard_id)``), the parameters are broadcast from
+rank 0 after the weights are loaded, the steps reduce what the global
+batch needs (engine/train.py), and every rank gathers the teacher's and
+validation's detections, so all ranks hold the same cache, mAP and best
+checkpoint. Every rank computes the task-end files alike; rank 0 writes
+each file, with a barrier after the write.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from ..datasets.voc import VOCTaskDataset
 from ..evaluation import eval_coco_map, eval_voc_map
 from ..models.detector import DetectorConfig, FasterRCNN
 from ..models.layers import FrozenBatchNorm
+from ..parallel import mesh
 from ..structures.sample import DetBatch, InstanceArray
 from ..utils import checkpoint as ckpt_io
 from ..utils.config import Config
@@ -284,20 +293,13 @@ def _dataset_repeat(ds_cfg: Config) -> int:
     return 1
 
 
-def _single_process() -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    dist = torch.distributed
-    if world > 1 or (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "training over several processes waits for data parallel (ROADMAP.md, queue 1 item 3)")
-
-
 class NullSpaceRunner:
-    """Per-task orchestration of the NSGP-RePRE pipeline on one device."""
+    """Per-task orchestration of the NSGP-RePRE pipeline on one device per
+    process (several processes: parallel/mesh.py)."""
 
     def __init__(self, cfg: Config, use_nsgp: bool = True, device=None):
         t_init = time.perf_counter()
-        _single_process()
+        self.world, self.rank = mesh.world_size(), mesh.rank()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.timings: Dict[str, float] = {}
@@ -333,14 +335,17 @@ class NullSpaceRunner:
         self.gt_capacity = cfg.get("gt_capacity", 64)
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
+        # each rank loads its rows of every global batch of one seeded plan
+        # (runner.py:256-276 in JAX)
+        shards = dict(num_shards=self.world, shard_id=self.rank)
         self.train_loader = PrefetchLoader(DetLoader(
             self.train_dataset, batch_size=self.batch_size, scale=self.scale, training=True,
             repeat=_dataset_repeat(tl_cfg.get("dataset", {})), seed=self.seed,
-            gt_capacity=self.gt_capacity,
+            gt_capacity=self.gt_capacity, **shards,
         ), buffer_size=tl_cfg.get("num_workers", 2), transfer_fn=self._device_batch)
         self.val_loader = PrefetchLoader(DetLoader(
             self.val_dataset, batch_size=vl_cfg.get("batch_size", self.batch_size),
-            scale=self.scale, training=False, gt_capacity=self.gt_capacity,
+            scale=self.scale, training=False, gt_capacity=self.gt_capacity, **shards,
         ), buffer_size=2, transfer_fn=self._device_batch)
         self.max_epochs = cfg.get("train_cfg", {}).get("max_epochs", 30)
 
@@ -358,6 +363,7 @@ class NullSpaceRunner:
         elif pretrained and osp.exists(str(pretrained)):
             self._load_backbone(pretrained)
         self.model.to(self.device)
+        mesh.replicate(self.model)  # before the teacher copies it
 
         # ---- optimizer and teacher, both after the load (nsrunner:529-549) ----
         self.optimizer = build_train_optimizer(cfg, self.model, len(self.train_loader))
@@ -406,7 +412,7 @@ class NullSpaceRunner:
                     feats, cls_targets, self.task_split, self.task_id,
                     max_prototype=self.max_prototype,
                     saved_masks=ckpt_io.load_masks(self.previous_dir))
-                ckpt_io.save_masks(self.work_dir, masks)
+                mesh.main_write(lambda: ckpt_io.save_masks(self.work_dir, masks), "masks")
             if roi_head_type == "StandardRoIReplayHead" or len(protos):
                 replay_feats = torch.from_numpy(protos).to(self.device)
                 replay_labels = torch.from_numpy(labels).to(self.device)
@@ -496,8 +502,9 @@ class NullSpaceRunner:
     def _save_checkpoint(self, name: str, host_state=None) -> str:
         flat = host_state or self._host_state()
         path = osp.join(self.work_dir, name)
-        ckpt_io.save_flat(path, {k: v for k, v in flat.items()
-                                 if k.startswith(("params/", "batch_stats/"))})
+        mesh.main_write(lambda: ckpt_io.save_flat(path, {
+            k: v for k, v in flat.items() if k.startswith(("params/", "batch_stats/"))}),
+            "ckpt:" + name)
         return path
 
     # ------------------------------------------------------------------
@@ -512,7 +519,8 @@ class NullSpaceRunner:
         # the best-mAP watermark keeps a post-resume epoch from replacing a
         # better pre-crash best_*.npz
         flat["best_map"] = np.asarray(float(best_map))
-        ckpt_io.save_flat(osp.join(self.work_dir, "resume_state.npz"), flat)
+        mesh.main_write(lambda: ckpt_io.save_flat(osp.join(self.work_dir, "resume_state.npz"),
+                                                  flat), "resume_state")
 
     def _try_resume(self) -> int:
         self._resumed_best = -1.0
@@ -552,11 +560,13 @@ class NullSpaceRunner:
         return list(zip(list(meta), flips))
 
     def _fill_pseudo_cache(self, batch: DetBatch, keys):
-        """Run the teacher on the batch and cache every row; returns its
-        detections on the device, ready for the step."""
+        """Run the teacher on the batch and cache every row of the global
+        batch (``keys``; the ranks' detections are gathered, so every rank
+        caches alike); returns this rank's detections on the device, ready
+        for the step."""
         dets = self.teacher_step(batch)
-        boxes, scores, labels, valid = (t.cpu().numpy() for t in (
-            dets.boxes, dets.scores, dets.labels, dets.valid))
+        boxes, scores, labels, valid = mesh.all_gather_rows(
+            (dets.boxes, dets.scores, dets.labels, dets.valid))
         for i, key in enumerate(keys):
             if key in self._pseudo_cache:
                 continue
@@ -578,9 +588,10 @@ class NullSpaceRunner:
         return dets
 
     def _cached_pseudo(self, batch: DetBatch, meta) -> InstanceArray:
-        """This batch's teacher detections from the cache (valid rows at
-        their positions, the rest zero and invalid), or one live teacher
-        run, which also fills the cache, when any row is missing."""
+        """This rank's rows of the batch's teacher detections from the cache
+        (valid rows at their positions, the rest zero and invalid), or one
+        live teacher run, which also fills the cache, when any row of the
+        global batch is missing (every rank decides alike)."""
         keys = self._global_keys(meta)
         if any(k not in self._pseudo_cache for k in keys):
             return self._fill_pseudo_cache(batch, keys)
@@ -590,7 +601,8 @@ class NullSpaceRunner:
         scores = np.zeros((B, P), np.float32)
         labels = np.full((B, P), -1, np.int32)
         valid = np.zeros((B, P), bool)
-        for i, k in enumerate(keys[:B]):
+        lo = self.rank * B  # this shard's keys (runner.py:655-676 in JAX)
+        for i, k in enumerate(keys[lo:lo + B]):
             b, s, lab, idx = self._pseudo_cache[k]
             boxes[i][idx] = b
             scores[i][idx] = s
@@ -606,7 +618,8 @@ class NullSpaceRunner:
         t0 = time.perf_counter()
         for force_flip in (False, True):
             pre = DetLoader(self.train_dataset, batch_size=self.batch_size, scale=self.scale,
-                            training=False, gt_capacity=self.gt_capacity, force_flip=force_flip)
+                            training=False, gt_capacity=self.gt_capacity, force_flip=force_flip,
+                            num_shards=self.world, shard_id=self.rank)
             for i, (batch, meta) in enumerate(PrefetchLoader(
                     pre, buffer_size=2, transfer_fn=self._device_batch)):
                 self._fill_pseudo_cache(batch, self._global_keys(meta))
@@ -637,13 +650,15 @@ class NullSpaceRunner:
             # (runner.py:732-753) against a TPU memory hazard of programs in
             # flight at once; eager PyTorch frees a step's activations before
             # the next step allocates, so there is nothing to guard here.
-            with open(osp.join(self.work_dir, "scalars.json"), "a") as log_f:
+            # Rank 0 writes the scalars (the metrics are the global batch's).
+            with open(osp.join(self.work_dir, "scalars.json") if mesh.is_main() else os.devnull,
+                      "a") as log_f:
                 for epoch in range(start_epoch, self.max_epochs):
                     self.train_loader.set_epoch(epoch)
                     t_loop, prof = time.perf_counter(), None
                     for it, (batch, meta) in enumerate(self._timed(self.train_loader,
                                                                    "loader_wait_s")):
-                        if profile_dir and epoch == 0 and it == 10:
+                        if profile_dir and epoch == 0 and it == 10 and mesh.is_main():
                             prof = _start_profile(self.device)
                         if prof is not None and it == 15:
                             prof = _stop_profile(prof, profile_dir)
@@ -669,12 +684,14 @@ class NullSpaceRunner:
                     self._save_checkpoint(f"epoch_{epoch}.npz", host_state)
                     self._save_resume_state(epoch, host_state, best_map=max(mAP, best_map))
                     last = osp.join(self.work_dir, f"epoch_{epoch - 1}.npz")
-                    if osp.exists(last):
+                    if mesh.is_main() and osp.exists(last):
                         os.remove(last)  # max_keep_ckpts=1
+                    # every rank scored the same gathered detections
                     if mAP > best_map:
-                        for f in os.listdir(self.work_dir):
-                            if f.startswith("best_"):
-                                os.remove(osp.join(self.work_dir, f))
+                        if mesh.is_main():
+                            for f in os.listdir(self.work_dir):
+                                if f.startswith("best_"):
+                                    os.remove(osp.join(self.work_dir, f))
                         best_map = mAP
                         self._save_checkpoint(f"best_mAP_epoch_{epoch}.npz", host_state)
         # post-training files (nsrunner:589-593)
@@ -687,14 +704,16 @@ class NullSpaceRunner:
         """Each listed image of a val batch drawn with its gts (left) and
         its detections (right) to ``<work_dir>/vis_data/<img_id>.jpg``
         (runner.py:886-915 in JAX: the batch's canvas image, the
-        detections as predict returns them)."""
+        detections as predict returns them). The detections are the
+        global batch's; its images are gathered too, and rank 0 draws."""
         from ..visualization import DetLocalVisualizer
 
+        imgs, gt_boxes, gt_labels, gt_valid = mesh.all_gather_rows(
+            (batch.images, batch.gt.boxes, batch.gt.labels, batch.gt.valid))
+        if not mesh.is_main():
+            return
         vis = DetLocalVisualizer(osp.join(self.work_dir, "vis_data"),
                                  class_names=getattr(self.val_dataset, "classes", None))
-        imgs = batch.images.cpu().numpy()
-        gt_boxes, gt_labels, gt_valid = (t.cpu().numpy() for t in (
-            batch.gt.boxes, batch.gt.labels, batch.gt.valid))
         for i, img_id in enumerate(img_ids):
             v, gv = valid[i], gt_valid[i]
             pred = dict(boxes=boxes[i][v], scores=scores[i][v], labels=labels[i][v])
@@ -706,15 +725,17 @@ class NullSpaceRunner:
         """Predict over the val set and score it (VOC or COCO mAP by
         ``val_evaluator``); with ``dump_to`` also pickle the per-image
         detections (img_id, boxes, scores, labels), the reference's
-        ``tools/test.py --out`` (DumpDetResults)."""
+        ``tools/test.py --out`` (DumpDetResults). Under data parallel the
+        ranks' detections are gathered, so every rank scores the global
+        set (runner.py:870-935 in JAX); rank 0 draws and dumps."""
         t0 = time.perf_counter()
         detections, annotations = [], []
         dumped = [] if dump_to else None
         vis_budget = self.cfg.get("vis_images", 0)  # DetVisualizationHook
         for batch, img_ids in self.val_loader:
             dets = self.eval_step(batch)
-            boxes, scores, labels, valid = (t.cpu().numpy() for t in (
-                dets.boxes, dets.scores, dets.labels, dets.valid))
+            boxes, scores, labels, valid = mesh.all_gather_rows(
+                (dets.boxes, dets.scores, dets.labels, dets.valid))
             if vis_budget > 0:
                 self._visualize(batch, img_ids[:vis_budget], boxes, scores, labels, valid)
                 vis_budget -= len(img_ids)
@@ -732,9 +753,7 @@ class NullSpaceRunner:
         self._add("val_s", time.perf_counter() - t0)
         self._add("val_images", len(detections))
         if dump_to:
-            with open(dump_to, "wb") as f:
-                pickle.dump(dumped, f)
-            logger.info(f"dumped {len(dumped)} per-image results to {dump_to}")
+            mesh.main_write(lambda: self._dump(dumped, dump_to), "dump")
         if self.cfg.get("val_evaluator", {}).get("type", "VOCMetric") == "CocoMetric":
             mAP = eval_coco_map(detections, annotations, self.det_cfg.num_classes)["mAP"]
         else:
@@ -751,6 +770,12 @@ class NullSpaceRunner:
         return [dict(boxes=by_id[i]["boxes"], labels=by_id[i]["labels"],
                      difficult=by_id[i].get("difficult"),
                      ignore_boxes=by_id[i].get("ignore_boxes")) for i in img_ids]
+
+    @staticmethod
+    def _dump(dumped, path: str) -> None:
+        with open(path, "wb") as f:
+            pickle.dump(dumped, f)
+        logger.info(f"dumped {len(dumped)} per-image results to {path}")
 
     def test(self, dump_to: Optional[str] = None) -> float:
         mAP = self.val(dump_to=dump_to)
@@ -800,9 +825,10 @@ class NullSpaceRunner:
             total = (dict(prev)
                      | {k: v for k, v in total.items() if k not in prev}
                      | {k: v + prev[k] for k, v in total.items() if k in prev})
-        path = ckpt_io.save_covariance(self.work_dir, total)
+        # every rank holds the same sums: the taps averaged the batch means
+        mesh.main_write(lambda: logger.info(
+            f"covariance saved to {ckpt_io.save_covariance(self.work_dir, total)}"), "covariance")
         self.timings["cov_s"] = time.perf_counter() - t0
-        logger.info(f"covariance saved to {path}")
 
     def cal_rois(self, max_batches: Optional[int] = None):
         """RoI features for RePRE (nsrunner:776-868)."""
@@ -812,6 +838,7 @@ class NullSpaceRunner:
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 3)
         parts = [[] for _ in ckpt_io.ROIS_KEYS]
         for batch in self._batches(max_batches, "roi_batches"):
+            # the global batch's RoIs on every rank (FasterRCNN.get_bbox_stuff)
             *arrays, valid = [x.cpu().numpy() for x in self.roi_step(batch, gen)]
             for part, a in zip(parts, arrays):
                 part.append(a[valid])
@@ -822,9 +849,10 @@ class NullSpaceRunner:
         if self.task_id != 1:
             prev = ckpt_io.load_rois_etc(self.previous_dir)
             arrays = [np.concatenate([p, a]) for p, a in zip(prev, arrays)]
-        path = ckpt_io.save_rois_etc(self.work_dir, arrays)
+        mesh.main_write(lambda: logger.info(
+            f"rois_etc saved to {ckpt_io.save_rois_etc(self.work_dir, arrays)} "
+            f"({len(arrays[0])} features)"), "rois_etc")
         self.timings["rois_s"] = time.perf_counter() - t0
-        logger.info(f"rois_etc saved to {path} ({len(arrays[0])} features)")
 
     def calculate_save_importance(self, max_batches: Optional[int] = None):
         """EWC Fisher diagonal over the train set (nsrunner:946-990)."""
@@ -835,13 +863,14 @@ class NullSpaceRunner:
         importance = ewc.init_importance(params)
         n_batches = len(self.train_loader)
         for batch in self._batches(max_batches, "importance_batches"):
-            grads = self.imp_step(self.state, batch, gen)
-            importance = ewc.accumulate_importance(importance, grads, batch.images.shape[0],
-                                                   n_batches)
+            grads = self.imp_step(self.state, batch, gen)  # the global batch's
+            importance = ewc.accumulate_importance(
+                importance, grads, batch.images.shape[0] * self.world, n_batches)
         terms = ewc.append_task_terms(dict(self.state.ewc_terms or {}), importance, params)
-        path = ckpt_io.save_ewc_terms(self.work_dir, terms, self.n_tasks)
+        mesh.main_write(lambda: logger.info(
+            f"EWC terms saved to {ckpt_io.save_ewc_terms(self.work_dir, terms, self.n_tasks)}"),
+            "ewc_terms")
         self.timings["importance_s"] = time.perf_counter() - t0
-        logger.info(f"EWC terms saved to {path}")
 
 
 class TeacherRunner(NullSpaceRunner):

@@ -13,6 +13,14 @@ optimizer's in-place update, with no compiled program around it. The
 JAX steps' random keys become the draws they produce: ``priorities``
 (the samplers' uniform draws, the raw replay's row choice, the RoI
 store's ranking) are passed in or drawn from a ``torch.Generator``.
+
+Under data parallel (parallel/mesh.py) each rank holds its rows of the
+global batch, and the steps compute what JAX's compute on its mesh:
+a per-batch loss term is a rank's sum over the GLOBAL normalizer
+(models/detector.py), so a rank backpropagates W times its share of
+the per-batch terms plus the batch-free ones (:data:`BATCH_FREE_TERMS`,
+equal on every rank), and the ranks' gradients are averaged before the
+clip and the update; the metrics are the global terms.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import torch
 
 from ..models.detector import DetectorConfig, FasterRCNN
 from ..models.layers import CovCollector
+from ..parallel.mesh import (all_reduce_mean_, all_reduce_sum, check_same_rows, is_distributed,
+                             world_size)
 from ..structures.sample import DetBatch, InstanceArray
 from .ewc import ewc_loss
 from .pseudo import merge_pseudo_labels
@@ -90,6 +100,33 @@ def trainable_mask(model: FasterRCNN, config: DetectorConfig) -> Dict[str, bool]
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     """mmengine parse_losses: sum every entry whose key contains 'loss'."""
     return sum(v for k, v in losses.items() if "loss" in k)
+
+
+# loss terms that do not read the batch: equal on every rank, counted once
+BATCH_FREE_TERMS = ("replay_loss_cls", "ewc_loss")
+
+
+def rank_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The loss a data-parallel rank backpropagates: W times its share of
+    every per-batch term, plus the batch-free terms once. The mean of the
+    ranks' gradients is then the gradient of the global loss. At one rank
+    it is :func:`total_loss` itself."""
+    W = world_size()
+    if W == 1:
+        return total_loss(losses)
+    return sum(v if k in BATCH_FREE_TERMS else W * v for k, v in losses.items() if "loss" in k)
+
+
+def global_terms(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The global batch's terms, detached: every per-batch term summed over
+    the ranks (one all-reduce), the batch-free ones as they are."""
+    if not is_distributed():
+        return {k: v.detach() for k, v in losses.items()}
+    keys = [k for k in losses if k not in BATCH_FREE_TERMS]
+    summed = all_reduce_sum(torch.stack([losses[k].detach() for k in keys]))
+    out = {k: v.detach() for k, v in losses.items()}
+    out.update({k: summed[i] for i, k in enumerate(keys)})
+    return out
 
 
 @dataclasses.dataclass
@@ -194,7 +231,10 @@ def make_train_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
     ``clip_grad`` (global-norm clipping before the update). The state is
     updated in place (the parameters and the optimizer's buffers) and
     returned; ``metrics`` holds the total loss and every loss term,
-    detached.
+    detached. The gradients are averaged over the data-parallel ranks after
+    ``backward()`` (:func:`rank_loss`) and the metrics are the global
+    batch's (:func:`global_terms`); with no process group both are the
+    one-process step's.
     """
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
@@ -208,8 +248,10 @@ def make_train_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         losses = task_losses(model, state, batch, teacher_model, generator, priorities,
                              teacher_dets)
+        rank_loss(losses).backward()
+        all_reduce_mean_([p.grad for p in params if p.grad is not None])
+        losses = global_terms(losses)
         loss = total_loss(losses)
-        loss.backward()
         if clip_grad_norm is not None:
             grads = [p.grad for p in params if p.grad is not None]
             gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
@@ -218,7 +260,7 @@ def make_train_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
                 g.mul_(scale)
         optimizer.step()
         state.step += 1
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+        metrics = {"loss": loss, **losses}
         return state, metrics
 
     return step
@@ -243,6 +285,7 @@ def make_cov_step(model: FasterRCNN):
     @torch.no_grad()
     def cov_fn(batch: DetBatch, generator: Optional[torch.Generator] = None,
                priorities: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        check_same_rows(batch.images.shape[0], "covariance batch")
         batch = batch.replace(images=normalize_images(batch.images))
         with CovCollector(model) as cov:
             model.loss(batch, generator=generator, priorities=priorities)
@@ -272,8 +315,9 @@ def make_importance_step(model: FasterRCNN, teacher_model: Optional[FasterRCNN] 
     terms included, as the reference runs it after training) with respect
     to EVERY parameter, frozen ones too, as JAX's ``jax.grad`` over all
     parameters gives them: a dict name → tensor, zeros where no term
-    reaches a parameter. ``requires_grad`` is switched on for the step and
-    restored after it."""
+    reaches a parameter, averaged over the ranks under data parallel (the
+    global loss's, :func:`rank_loss`). ``requires_grad`` is switched on for
+    the step and restored after it."""
 
     def imp_fn(state: TrainState, batch: DetBatch, generator: Optional[torch.Generator] = None,
                priorities: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -283,12 +327,13 @@ def make_importance_step(model: FasterRCNN, teacher_model: Optional[FasterRCNN] 
         try:
             for _, p in named:
                 p.requires_grad_(True)
-            loss = total_loss(task_losses(model, state, batch, teacher_model, generator,
-                                          priorities))
-            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+            losses = task_losses(model, state, batch, teacher_model, generator, priorities)
+            grads = torch.autograd.grad(rank_loss(losses), [p for _, p in named], allow_unused=True)
         finally:
             for (_, p), f in zip(named, flags):
                 p.requires_grad_(f)
-        return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, grads)}
+        out = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, grads)}
+        all_reduce_mean_(list(out.values()))
+        return out
 
     return imp_fn

@@ -40,7 +40,7 @@ from ..structures.boxes import bbox_clip, delta2bbox
 from ..structures.sample import DetBatch, InstanceArray
 from .bbox_head import Shared2FCBBoxHeadTask
 from .detector import DetectorConfig, FasterRCNN, _RoIHead
-from .losses import accuracy, weighted_smooth_l1, weighted_softmax_ce
+from .losses import accuracy, global_avg_factor, weighted_smooth_l1, weighted_softmax_ce
 from .mask import MaskBranch
 
 
@@ -133,11 +133,11 @@ class CascadeRCNN(FasterRCNN):
             bbox_pred = bbox_pred.float()
             w = cfg.stage_loss_weights[i]
             label_w = valid.float()
-            avg = torch.clamp(label_w.sum(), min=1.0)
+            avg = global_avg_factor(label_w.sum())
             losses[f"s{i}.loss_cls"] = w * weighted_softmax_ce(cls_score, labels, label_w, avg)
             losses[f"s{i}.loss_bbox"] = w * weighted_smooth_l1(
                 bbox_pred, tgt, pos[:, None].float(), avg, beta=cfg.rcnn_smooth_l1_beta)
-            losses[f"s{i}.acc"] = accuracy(cls_score, labels, label_w)
+            losses[f"s{i}.acc"] = accuracy(cls_score, labels, label_w, avg)
             if i < cfg.num_stages - 1:
                 # refine the sampled RoIs with this stage's deltas; drop the
                 # rows of the injected gts

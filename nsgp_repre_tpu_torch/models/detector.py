@@ -45,13 +45,15 @@ from ..ops.nms import batched_soft_nms
 from ..ops.nms_cuda import batched_nms, batched_nms_matrix
 from ..ops.roi_align_cuda import multilevel_roi_align
 from ..ops.topk import top_k
+from ..parallel.mesh import all_gather_rows, rank, shard_rows, world_size
 from ..structures.boxes import bbox2delta, delta2bbox
 from ..structures.sample import DetBatch, InstanceArray
 from .assigners import max_iou_assign
 from .bbox_head import Shared2FCBBoxHeadTask
 from .fpn import FPN
 from .layers import CovConv, CovDense, FrozenBatchNorm, nhwc
-from .losses import accuracy, weighted_l1, weighted_sigmoid_bce, weighted_softmax_ce
+from .losses import (accuracy, global_avg_factor, weighted_l1, weighted_sigmoid_bce,
+                     weighted_softmax_ce)
 from .resnet import ResNet50
 from .rpn_head import RPNHead
 from .samplers import random_sample_gather, random_sample_masks
@@ -327,15 +329,23 @@ class FasterRCNN(nn.Module):
 
     @staticmethod
     def _priorities(given, shape, generator, device) -> torch.Tensor:
-        """Sampling priorities: ``given`` (shape checked), else uniform
-        [0, 1) draws from ``generator`` on its own device."""
+        """Sampling priorities of this rank's rows, ``shape`` (B, ...):
+        ``given`` (of the global shape (W·B, ...), checked), else uniform
+        [0, 1) draws at the global shape from ``generator`` on its own
+        device; either way rank r takes rows ``[r·B, (r+1)·B)``, so every
+        rank consumes the generator alike and a world of W samples what
+        one process does on the whole batch (parallel/mesh.py)."""
+        W = world_size()
+        gshape = (shape[0] * W,) + tuple(shape[1:])
         if given is not None:
-            if tuple(given.shape) != tuple(shape):
-                raise ValueError(f"priorities of shape {tuple(shape)} expected, got {tuple(given.shape)}")
-            return given.to(device=device, dtype=torch.float32)
-        if generator is None:
+            if tuple(given.shape) != gshape:
+                raise ValueError(f"priorities of shape {gshape} expected, got {tuple(given.shape)}")
+            u = given.to(device=device, dtype=torch.float32)
+        elif generator is None:
             raise ValueError("sampling needs a torch.Generator or the priorities themselves")
-        return torch.rand(shape, generator=generator, device=generator.device).to(device)
+        else:
+            u = torch.rand(gshape, generator=generator, device=generator.device).to(device)
+        return u if W == 1 else shard_rows(u, rank(), W)
 
     # ------------------------------------------------------------------
     def rpn_loss_and_proposals(self, feats, gt: InstanceArray, img_shape: torch.Tensor,
@@ -371,8 +381,8 @@ class FasterRCNN(nn.Module):
             u = self._priorities(u, assigned.shape, generator, dev)
             pos, neg = random_sample_masks(assigned, cfg.rpn_num, cfg.rpn_pos_fraction, u)
             label_w = (pos | neg).float()
-            # avg_factor over the whole batch, as in JAX
-            avg = torch.clamp(label_w.sum(), min=1.0)
+            # avg_factor over the whole (global) batch, as in JAX
+            avg = global_avg_factor(label_w.sum())
             if sparse:
                 cls_s, reg_s, pos_s, w_s, tgt_s = self._rpn_sparse_logits(
                     feats, pos, neg, tgt, level_sizes)
@@ -591,7 +601,7 @@ class FasterRCNN(nn.Module):
         bbox_pred = bbox_pred.float()
 
         label_w = valid.float()
-        avg = torch.clamp(label_w.sum(), min=1.0)
+        avg = global_avg_factor(label_w.sum())
         loss_cls = weighted_softmax_ce(cls_score, labels, label_w, avg)
         # the regression of the sampled class (bbox_head.py:575)
         n = bbox_pred.shape[0]
@@ -602,7 +612,7 @@ class FasterRCNN(nn.Module):
         return {
             "loss_cls": loss_cls,
             "loss_bbox": loss_bbox,
-            "acc": accuracy(cls_score, labels, label_w),
+            "acc": accuracy(cls_score, labels, label_w, avg),
         }
 
     def bbox_forward(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -743,12 +753,21 @@ class FasterRCNN(nn.Module):
         # exactly target_count: foreground first, then the other valid RoIs
         key = torch.where(pos & valid, 2.0 + u3, torch.where(valid, u3, -1.0))
         order = top_k(key, target_count)[1]
+        picked = (mid[order], labels[order], tgt[order], pos[order], rois[order])
+        if world_size() > 1:
+            # the global batch's top target_count are among the ranks' own
+            # top ones; gathered in rank order, equal keys keep the lowest
+            # global index first, as top_k over the whole batch has them
+            keys, *cands = all_gather_rows((key[order],) + picked)
+            sel = top_k(torch.from_numpy(keys), target_count)[1].numpy()
+            picked = tuple(torch.from_numpy(c[sel]).to(dev) for c in cands)
+        mid, labels, tgt, pos, rois = picked
         return (
-            mid[order],
-            labels[order],
+            mid,
+            labels,
             torch.ones(target_count, dtype=torch.float32, device=dev),
-            tgt[order],
-            pos[order, None].float().repeat(1, 4),
-            rois[order],
+            tgt,
+            pos[:, None].float().repeat(1, 4),
+            rois,
             torch.ones(target_count, dtype=torch.bool, device=dev),
         )

@@ -19,7 +19,11 @@ its model adds the covariance of its batch-mean input to the collector,
 summed over calls. A conv's input is unfolded into (c, kh, kw) patches
 (``F.unfold``'s order, the rows of the (O, I·kh·kw) weight); a linear
 layer's is a rank-1 outer product. With no collector a layer pays one
-attribute test.
+attribute test. Under data parallel (parallel/mesh.py) the batch mean is
+averaged over the ranks before the outer product, which gives the global
+batch's mean because every rank's tapped tensor has the same leading size
+(engine/train.py::make_cov_step checks the batch's); the sums are not
+reduced afterwards.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.rpn_head_cuda import conv3x3
+from ..parallel.mesh import all_reduce_mean
 from ..utils.convert import jax_path_from_port
 
 
@@ -54,8 +59,9 @@ class CovConv(nn.Conv2d):
     cov_tap = None  # set by CovCollector while it is entered
 
     def input_cov(self, x: torch.Tensor) -> torch.Tensor:
-        """(I·kh·kw)² covariance of the batch-mean input's patches, f32."""
-        xm = x.float().mean(dim=0, keepdim=True)
+        """(I·kh·kw)² covariance of the batch-mean input's patches, f32;
+        the mean is the global batch's under data parallel."""
+        xm = all_reduce_mean(x.float().mean(dim=0, keepdim=True))
         p = F.unfold(xm, self.kernel_size, self.dilation, self.padding, self.stride)[0]
         return p @ p.T
 
@@ -90,8 +96,9 @@ class CovDense(nn.Linear):
     cov_tap = None  # set by CovCollector while it is entered
 
     def input_cov(self, x: torch.Tensor) -> torch.Tensor:
-        """in² outer product of the batch-mean input row, f32."""
-        xm = x.float().mean(dim=0, keepdim=True)
+        """in² outer product of the batch-mean input row, f32; the mean is
+        the global batch's under data parallel."""
+        xm = all_reduce_mean(x.float().mean(dim=0, keepdim=True))
         return xm.T @ xm
 
     def forward(self, x: torch.Tensor, row_chw=None) -> torch.Tensor:

@@ -10,9 +10,19 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum
+
 
 def _avg(avg_factor) -> torch.Tensor:
     return torch.clamp(torch.as_tensor(avg_factor, dtype=torch.float32), min=1.0)
+
+
+def global_avg_factor(count: torch.Tensor) -> torch.Tensor:
+    """A loss normalizer over the whole batch: ``count`` (this rank's
+    samples, a 0-d tensor) summed over the data-parallel ranks
+    (parallel/mesh.py), in f32, at least 1. Each rank's term is then its
+    share of the global batch's loss, as JAX computes it on its mesh."""
+    return torch.clamp(all_reduce_sum(count.float()), min=1.0)
 
 
 def weighted_sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor,
@@ -65,8 +75,11 @@ def weighted_smooth_l1(pred: torch.Tensor, target: torch.Tensor, weights: torch.
     return (loss * weights).sum() / _avg(avg_factor)
 
 
-def accuracy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Weighted top-1 accuracy (mmdet logs ``acc`` for the RoI head)."""
+def accuracy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+             avg_factor=None) -> torch.Tensor:
+    """Weighted top-1 accuracy (mmdet logs ``acc`` for the RoI head), over
+    ``avg_factor`` when given (a data-parallel rank's share of the global
+    batch's), else over the weights' sum."""
     pred = torch.argmax(logits, dim=-1)
     correct = (pred == labels).float() * weights
-    return correct.sum() / torch.clamp(weights.sum(), min=1.0)
+    return correct.sum() / _avg(weights.sum() if avg_factor is None else avg_factor)

@@ -38,6 +38,7 @@ from ..structures.sample import DetBatch, InstanceArray
 from .detector import DetectorConfig, FasterRCNN
 from .fpn import ConvModule
 from .layers import CovConv, nchw, nhwc
+from .losses import global_avg_factor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +208,7 @@ class MaskBranch:
         bce = torch.maximum(ml, torch.zeros_like(ml)) - ml * targets + torch.log1p(
             torch.exp(-torch.abs(ml)))
         w = pos.float()
-        return (bce.mean(dim=(1, 2)) * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return (bce.mean(dim=(1, 2)) * w).sum() / global_avg_factor(w.sum())
 
     def _predict_masks(self, feats, dets: InstanceArray, batch: DetBatch,
                        rescale: bool) -> InstanceArray:

@@ -37,7 +37,7 @@ from .assigners import NEG, max_iou_assign
 from .detector import anchor_valid_flags, he_normal_, normal_, reset_norms_and_biases, xavier_
 from .fpn import FPN, ConvModule
 from .layers import CovConv, nchw, nhwc
-from .losses import weighted_l1, weighted_sigmoid_focal
+from .losses import global_avg_factor, weighted_l1, weighted_sigmoid_focal
 from .resnet import ResNet50
 
 PRIOR_BIAS = float(-np.log((1 - 0.01) / 0.01))  # retina_head.py init_cfg bias_prob=0.01
@@ -277,7 +277,7 @@ class RetinaNet(DenseDetector):
         B, N = g.shape
         matched = torch.gather(gt.boxes, 1, g[..., None].expand(B, N, 4))
         tgt = bbox2delta(anchors.expand(B, N, 4), matched)
-        num_pos = torch.clamp(pos.sum().float(), min=1.0)
+        num_pos = global_avg_factor(pos.sum())
         return {
             "loss_cls": weighted_sigmoid_focal(cls_flat, labels, (pos | neg).float(), num_pos, C,
                                                gamma=cfg.focal_gamma, alpha=cfg.focal_alpha),

@@ -36,7 +36,7 @@ from .assigners import NEG, max_iou_assign
 from .detector import he_normal_, reset_norms_and_biases
 from .fpn import ConvModule
 from .layers import CovConv, nchw, nhwc
-from .losses import weighted_smooth_l1
+from .losses import global_avg_factor, weighted_smooth_l1
 from .single_stage import DenseDetector, dense_predict, flat_maps
 
 # (convs, channels) of VGG-16's blocks
@@ -274,7 +274,7 @@ class SSD(DenseDetector):
         tgt = bbox2delta(anchors.expand(B, N, 4), matched, stds=cfg.target_stds)
         ce = -torch.gather(torch.log_softmax(cls_flat, -1), 2, labels[..., None])[..., 0]
         w = (pos | hard_negatives(ce, pos, neg, cfg.neg_pos_ratio)).float()
-        total_pos = torch.clamp(pos.sum(), min=1).float()
+        total_pos = global_avg_factor(pos.sum())
         return {
             "loss_cls": (ce * w).sum(dim=1).sum() / total_pos,
             "loss_bbox": weighted_smooth_l1(reg_flat, tgt, pos[..., None].float(), 1.0,

@@ -286,8 +286,10 @@ def test_runner_refuses_what_it_lacks(chain, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             NullSpaceRunner(cfg)
+    # WORLD_SIZE asks for several processes, but no process group is up:
+    # the runner names the call that joins one (parallel/mesh.py)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(RuntimeError, match="maybe_init_distributed"):
         NullSpaceRunner(cfg, device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     # validation's visualization is ported: vis_images=2 draws the first

@@ -8,6 +8,11 @@ from seeds; both sides see the same numbers.
 """
 from __future__ import annotations
 
+import os
+import os.path as osp
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -522,3 +527,33 @@ def family_loss_runs(model, variables, port, jb, tb, rng, priorities, jax_args=(
     return dict(jax_losses={k: float(v) for k, v in jl.items()},
                 losses={k: float(v.detach()) for k, v in tl.items()},
                 jax_grads=ref, grads=grads, flips=relu_flips(jin, rec.out))
+
+
+# the data-parallel tests' ranks (tests/test_torch_parallel*.py): processes
+# of tests/torch_parallel_worker.py, whose collectives time out after 120 s
+WORKER = osp.join(osp.dirname(osp.abspath(__file__)), "torch_parallel_worker.py")
+WAIT_S = 240
+
+
+def spawn_worker(args, tmp_path, name):
+    """A worker process; its output goes to a file (no pipe to fill)."""
+    log = open(tmp_path / f"{name}.log", "w")
+    env = dict(os.environ, OMP_NUM_THREADS="2", GLOO_SOCKET_IFNAME="lo")  # loopback only
+    return subprocess.Popen([sys.executable, WORKER, *map(str, args)], stdout=log,
+                            stderr=subprocess.STDOUT, env=env,
+                            cwd=osp.dirname(WORKER)), log
+
+
+def wait_workers(procs, tmp_path):
+    """Wait for every worker; fail with the log's tail of one that failed,
+    and kill the rest."""
+    try:
+        for name, (p, log) in procs.items():
+            p.wait(timeout=WAIT_S)
+            log.close()
+            assert p.returncode == 0, (name, (tmp_path / f"{name}.log").read_text()[-4000:])
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()

@@ -10,6 +10,14 @@ run stops with an error when there is no CUDA device, use
 
     python tools/torch_train.py cl_faster_rcnn_cfgs/incremental_task/cl_faster_rcnn_nsgp_repre_15_5_1.py \\
         --work-dir work_dirs/15_5_1
+
+Data parallel over N GPUs (tools/torch_dist_train.sh): under torchrun
+(``WORLD_SIZE`` > 1) each process joins the group before the runner is
+built (parallel/mesh.py::maybe_init_distributed) and runs on
+``cuda:LOCAL_RANK`` unless ``--device`` names one; ``--dist-backend``
+picks the backend (default ``nccl`` on CUDA, ``gloo`` on the CPU).
+
+    torchrun --standalone --nproc_per_node=8 tools/torch_train.py CONFIG --work-dir W
 """
 from __future__ import annotations
 
@@ -20,7 +28,10 @@ import sys
 
 sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), ".."))
 
+import torch.distributed as dist  # noqa: E402
+
 from nsgp_repre_tpu_torch.engine.runner import NullSpaceRunner, TeacherRunner  # noqa: E402
+from nsgp_repre_tpu_torch.parallel.mesh import maybe_init_distributed  # noqa: E402
 from nsgp_repre_tpu_torch.utils.config import load_config  # noqa: E402
 
 RUNNERS = {
@@ -40,7 +51,11 @@ def parse_args(argv=None):
         default=None,
         help="override config entries, e.g. task_id=2 train_cfg.max_epochs=1",
     )
-    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, under torchrun cuda:LOCAL_RANK)")
+    p.add_argument("--dist-backend", default=None,
+                   help="torch.distributed backend under torchrun (default: nccl on CUDA, "
+                        "gloo on the CPU)")
     return p.parse_args(argv)
 
 
@@ -54,10 +69,13 @@ def main(argv=None):
     elif "work_dir" not in cfg:
         cfg["work_dir"] = osp.join("./work_dirs", osp.splitext(osp.basename(args.config))[0])
     cfg["resume"] = args.resume
-    runner = RUNNERS[cfg.get("runner_type", "BRNullSpaceRunner")](cfg, device=args.device)
+    device = maybe_init_distributed(args.dist_backend, args.device)
+    runner = RUNNERS[cfg.get("runner_type", "BRNullSpaceRunner")](cfg, device=device)
     runner.train()
     return runner
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()
