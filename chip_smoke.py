@@ -37,8 +37,7 @@ Phases, each of which raises on a failed check (exit code 1):
    batch 16, seeded images and boxes): every training kernel launches
    once per step, losses stay finite, frozen parameters stay bit-equal
    and trainable ones move; the f32 batch-1 loss terms and gradients on
-   the card against the CPU; step time, img/s, peak memory, one profiled
-   step;
+   the card against the CPU; step time, img/s, peak memory;
 7. task chain, from the slice phase's task-1 weights: the covariance pass over
    2 batches, the NSGP projections on the host (timed), the RoI store
    over 13 batches, the prototypes, the EWC importance over 2 batches;
@@ -49,7 +48,7 @@ Phases, each of which raises on a failed check (exit code 1):
    same terms bit for bit), frozen parameters and the teacher bit-equal,
    2 raw-replay steps, and the f32 batch-1 task-2 loss and gradients on
    the card against the CPU; each path's launches, step time, peak
-   memory, profiles of each pass;
+   memory;
 8. runner: tools/torch_train.py's NullSpaceRunner over a synthetic VOC2007
    tree (16 trainval and 16 test images, 600x1000, as binary PPM) at full
    width and depth: task 1 of the 15+5 configs from the predict phase's
@@ -107,8 +106,7 @@ Phases, each of which raises on a failed check (exit code 1):
    1e-3 (the two-stage families' on the card's proposals; the C4 heads'
    f32 pair keeps 100 proposals, as the CPU runs res5 on each), f32
    detections matched >= 95% and Mask R-CNN C4's probabilities on the
-   card's boxes within 1e-3; step, predict times, peak memory, a profile
-   of each path;
+   card's boxes within 1e-3; step, predict times, peak memory;
 11. data parallel (parallel/mesh.py), on the train phase's weights, batch
    and draws: (a) world 1 through NCCL in this process, 3 bf16 steps at
    batch 16 after a warm-up step with a process group of one up, against
@@ -743,44 +741,6 @@ def check_detections(name, dets, n_images, num_active=15):
     return total
 
 
-def profile_call(torch, fn, label: str) -> None:
-    """Device time by kernel over one call of ``fn`` (torch.profiler), the
-    sum of device time against the host-clock wall time, and the idle
-    share; the copies' share of the device time (the host-to-device copy
-    of pageable images varies with the host) and the call's peak memory.
-    A profile without device time fails the run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = []  # device-side events only (kernels, copies), so nothing counts twice
-    for e in prof.key_averages():
-        d = getattr(e, "self_device_time_total", 0) or 0
-        # a user annotation (the optimizer's record_function scope) spans
-        # kernels that are counted on their own
-        span = getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer.")
-        if e.device_type == DeviceType.CUDA and d > 0 and not span \
-                and not e.key.startswith("Activity"):
-            rows.append((d / 1e3, e.count, e.key[:80]))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    copies = sum(r[0] for r in rows if r[2].startswith(("Memcpy", "Memset")))
-    check(f"profile {label}", busy > 0, "no device time recorded")
-    log({"phase": f"profile {label}", "wall_ms": wall, "device_ms": busy,
-         "copies_ms": copies, "kernels_ms": busy - copies, "idle_share": 1 - busy / wall,
-         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-         "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:15]],
-         # the port's own kernels (csrc/*.cu, all in anonymous namespaces)
-         "port_kernels": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows if k.startswith(
-             ("(anonymous namespace)::", "void (anonymous namespace)::"))]})
-
-
 def slice_weights(torch, imgs):
     """The 15+5 config's seeded, conditioned weights as a CPU state dict
     (every later phase starts from them), and the f32 and bf16 configs and
@@ -871,8 +831,6 @@ def slice_phase(torch, card: str):
          "batch1_latency_ms_median": statistics.median(lat), "batch1_latency_ms_all": lat,
          "batch16_img_per_s_median": statistics.median(thr), "batch16_img_per_s_all": thr,
          "measured": "host clock around inference_detector (pack, H2D, predict, D2H)"})
-    profile_call(torch, lambda: inference_detector(det16, imgs[0]), "predict bf16 batch 1")
-    profile_call(torch, lambda: inference_detector(det16, imgs), "predict bf16 batch 16")
     return launches_b1, state
 
 
@@ -1151,7 +1109,6 @@ def train_phase(torch, card: str, state):
          "lr_last": float(opt.lr()), "losses_first": losses[0], "losses_last": losses[-1],
          "frozen_params": len(before) - len(trainable), "trainable_params": len(trainable),
          "measured": "host clock around make_train_step's step, ending in torch.cuda.synchronize"})
-    profile_call(torch, lambda: step(st, batch, gen), "train bf16 batch 16 (one step)")
     del model, opt, st, step
     torch.cuda.empty_cache()
 
@@ -1385,7 +1342,6 @@ def task_chain_phase(torch, card: str, task1):
     log({"phase": "task chain: covariances", "layers": len(total),
          "largest": max((tuple(v.shape) for v in total.values()), key=lambda t: t[0]),
          "bytes": sum(v.numel() * 4 for v in total.values())})
-    profile_call(torch, lambda: cov_step(batches[0], gen), "cov step bf16 batch 16")
 
     # ---- 2. the NSGP projections, on the host ----
     patterns = translate_ignore_keys(cfg1.get("ignore_keys", ["rpn", "roi_head"]))
@@ -1412,7 +1368,6 @@ def task_chain_phase(torch, card: str, task1):
         out, paths["roi_extract"] = run_path(torch, f"roi extract {i}", EXPECTED_EXTRACT,
                                              lambda b=b: extract(b, gen))
         stored.append([x.cpu() for x in out])
-    profile_call(torch, lambda: extract(batches[0], gen), "roi extract bf16 batch 16")
     feats = torch.cat([s[0] for s in stored]).numpy()
     labels = torch.cat([s[1] for s in stored]).numpy()
     check("roi store", feats.shape == (65, 12544) and np.isfinite(feats).all(), feats.shape)
@@ -1434,7 +1389,6 @@ def task_chain_phase(torch, card: str, task1):
         grads, paths["importance_step"] = run_path(torch, f"importance step {i}", EXPECTED_TRAIN,
                                                    lambda b=b: imp_step(st1, b, gen))
         importance = ewc.accumulate_importance(importance, grads, TRAIN_BATCH, len(batches))
-    profile_call(torch, lambda: imp_step(st1, batches[0], gen), "importance step bf16 batch 16")
     terms = ewc.append_task_terms({}, importance, params1)
     check("ewc terms", len(terms) == 106 and all(
         torch.isfinite(i).all() for i, _ in terms.values()), len(terms))
@@ -1514,7 +1468,6 @@ def task_chain_phase(torch, card: str, task1):
          "projections": len(opt.transforms),
          "measured": "host clock around make_train_step's step (teacher in the step), ending in "
                      "torch.cuda.synchronize"})
-    profile_call(torch, lambda: step(st, batch, gen2), "task-2 train bf16 batch 16 (one step)")
 
     # ---- 7. the teacher's detections fed in: the same terms on the same draws ----
     dets, paths["teacher_step"] = run_path(torch, "teacher step", EXPECTED_TEACHER,
@@ -2121,7 +2074,6 @@ def family_phase(torch, dev, card: str, kind: str, config_file: str, batch, path
           (("s2.loss_cls" in losses) == kind.startswith("Cascade")), sorted(losses))
     train_peak = torch.cuda.max_memory_allocated()
     paths[f"{kind}_train_step"] = launches
-    profile_call(torch, step, f"{kind} train bf16 batch 2 (one step)")
     del opt
     model.load_state_dict(state)
     model.eval()
@@ -2143,7 +2095,6 @@ def family_phase(torch, dev, card: str, kind: str, config_file: str, batch, path
         ms = host_ms(torch, lambda: eval_step(bb), 3)
         pred[B] = {"detections": n_dets, "ms_median": statistics.median(ms), "ms_all": ms,
                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-        profile_call(torch, lambda: eval_step(bb), f"{kind} predict bf16 batch {B}")
     del model, eval_step
     torch.cuda.empty_cache()
 
@@ -2824,7 +2775,6 @@ def rest_family_phase(torch, dev, card: str, kind: str, config_file: str, batch,
     check(f"{kind} train", ("loss_mask" in losses) == masks, sorted(losses))
     train_peak = torch.cuda.max_memory_allocated()
     paths[f"{kind}_train_step"] = launches
-    profile_call(torch, step, f"{kind} train bf16 batch {B} (one step)")
     del opt
     model.load_state_dict(state)
     model.eval()
@@ -2849,7 +2799,6 @@ def rest_family_phase(torch, dev, card: str, kind: str, config_file: str, batch,
         ms = host_ms(torch, lambda: eval_step(bb), 3)
         pred[pb] = {"detections": n_dets, "ms_median": statistics.median(ms), "ms_all": ms,
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-        profile_call(torch, lambda: eval_step(bb), f"{kind} predict bf16 batch {pb}")
     del model, eval_step
     torch.cuda.empty_cache()
 

@@ -23,7 +23,11 @@ run on ``cuda`` unless a device is named (utils/device.py).
 ``jax.random`` keys become ``torch.Generator`` s on the device, seeded as
 JAX seeds its keys: the train loop ``seed + 1``, the covariance pass
 ``+ 2``, the RoI store ``+ 3``, the importance pass ``+ 4``.
-``timings`` holds each stage's wall seconds and counts.
+``timings`` holds each stage's wall seconds and counts. The train
+loop's waits on its loader are also the span ``nsgp.runner.loader_wait``
+(utils/spans.py), so a ``profile_dir`` trace (train iterations 10-15 of
+epoch 0) shows them beside the step's ``nsgp.train_step``: a loop held
+by its loader from one held by the step.
 
 Data parallel (parallel/mesh.py; JAX's process-aware paths): with a
 process group up, each rank loads its rows of every global batch
@@ -63,6 +67,7 @@ from ..utils import checkpoint as ckpt_io
 from ..utils.config import Config
 from ..utils.convert import jax_flat_from_state_dict, state_dict_from_jax
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from . import ewc, nsgp, optim, replay
 from .train import (TrainState, make_cov_step, make_eval_step, make_importance_step,
                     make_lr_schedule, make_roi_extract_step, make_teacher_step, make_train_step,
@@ -461,7 +466,8 @@ class NullSpaceRunner:
             while True:
                 t0 = time.perf_counter()
                 try:
-                    item = next(it)
+                    with span("runner.loader_wait"):
+                        item = next(it)
                 except StopIteration:
                     return
                 finally:

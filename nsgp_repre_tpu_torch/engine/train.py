@@ -13,6 +13,10 @@ optimizer's in-place update, with no compiled program around it. The
 JAX steps' random keys become the draws they produce: ``priorities``
 (the samplers' uniform draws, the raw replay's row choice, the RoI
 store's ranking) are passed in or drawn from a ``torch.Generator``.
+Under a running profiler the train step marks its layers with the
+ranges of utils/spans.py: ``train_step`` around the whole step, and
+``ewc``, ``backward`` and ``optimizer`` (the gradient all-reduce, the
+clip and the update) inside it.
 
 Under data parallel (parallel/mesh.py) each rank holds its rows of the
 global batch, and the steps compute what JAX's compute on its mesh:
@@ -35,6 +39,7 @@ from ..models.layers import CovCollector
 from ..parallel.mesh import (all_reduce_mean_, all_reduce_sum, check_same_rows, is_distributed,
                              world_size)
 from ..structures.sample import DetBatch, InstanceArray
+from ..utils.spans import span
 from .ewc import ewc_loss
 from .pseudo import merge_pseudo_labels
 
@@ -200,7 +205,8 @@ def task_losses(model: FasterRCNN, state: TrainState, batch: DetBatch,
     if raw:
         losses["replay_loss_cls"] = model.raw_replay_loss(raw_feats, raw_teacher_cls)
     if state.ewc_terms:
-        losses["ewc_loss"] = ewc_loss(dict(model.named_parameters()), state.ewc_terms)
+        with span("ewc"):
+            losses["ewc_loss"] = ewc_loss(dict(model.named_parameters()), state.ewc_terms)
     return losses
 
 
@@ -244,23 +250,26 @@ def make_train_step(model: FasterRCNN, optimizer: torch.optim.Optimizer,
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if state.optimizer is not optimizer:
             raise ValueError("the state holds another optimizer than this step's")
-        batch = batch.replace(images=normalize_images(batch.images))
-        optimizer.zero_grad(set_to_none=True)
-        losses = task_losses(model, state, batch, teacher_model, generator, priorities,
-                             teacher_dets)
-        rank_loss(losses).backward()
-        all_reduce_mean_([p.grad for p in params if p.grad is not None])
-        losses = global_terms(losses)
-        loss = total_loss(losses)
-        if clip_grad_norm is not None:
-            grads = [p.grad for p in params if p.grad is not None]
-            gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-            scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-            for g in grads:
-                g.mul_(scale)
-        optimizer.step()
-        state.step += 1
-        metrics = {"loss": loss, **losses}
+        with span("train_step"):
+            batch = batch.replace(images=normalize_images(batch.images))
+            optimizer.zero_grad(set_to_none=True)
+            losses = task_losses(model, state, batch, teacher_model, generator, priorities,
+                                 teacher_dets)
+            with span("backward"):
+                rank_loss(losses).backward()
+            with span("optimizer"):
+                all_reduce_mean_([p.grad for p in params if p.grad is not None])
+                losses = global_terms(losses)
+                loss = total_loss(losses)
+                if clip_grad_norm is not None:
+                    grads = [p.grad for p in params if p.grad is not None]
+                    gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+                    scale = torch.clamp(clip_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+                    for g in grads:
+                        g.mul_(scale)
+                optimizer.step()
+            state.step += 1
+            metrics = {"loss": loss, **losses}
         return state, metrics
 
     return step

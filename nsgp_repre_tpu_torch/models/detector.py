@@ -28,6 +28,11 @@ test can feed JAX's draws. ``rpn_nms_impl='matrix'`` runs the NMS kernel
 with JAX's batch-wide group offset (ops/nms_cuda.py::batched_nms_matrix);
 ``nms_type='soft_nms'`` takes the plain-PyTorch ``batched_soft_nms`` of
 ops/nms.py (no kernel in JAX either).
+
+Under a running profiler the stages mark themselves with the ranges of
+utils/spans.py: ``predict``, ``backbone`` (extract_feat), ``rpn`` (the
+head, anchors, assignment, sampling and loss), ``proposals``, ``roi``
+(the RoI stage of the loss and of predict) and ``replay``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from ..ops.topk import top_k
 from ..parallel.mesh import all_gather_rows, rank, shard_rows, world_size
 from ..structures.boxes import bbox2delta, delta2bbox
 from ..structures.sample import DetBatch, InstanceArray
+from ..utils.spans import span
 from .assigners import max_iou_assign
 from .bbox_head import Shared2FCBBoxHeadTask
 from .fpn import FPN
@@ -304,13 +310,16 @@ class FasterRCNN(nn.Module):
         """images (B,H,W,3) → 5 NHWC FPN levels in the compute dtype.
         ``inference=True`` lets the FPN output convs take the conv3x3
         kernel at batch <= infer_fused_max_batch."""
-        cfg = self.config
-        fused = inference and cfg.rpn_fused_head and images.shape[0] <= cfg.infer_fused_max_batch
-        x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        feats = self.backbone(x)
-        if self.neck is not None:
-            feats = self.neck(feats, fused=fused)
-        return tuple(nhwc(f) for f in feats)
+        with span("backbone"):
+            cfg = self.config
+            fused = (inference and cfg.rpn_fused_head
+                     and images.shape[0] <= cfg.infer_fused_max_batch)
+            x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            feats = self.backbone(x)
+            if self.neck is not None:
+                feats = self.neck(feats, fused=fused)
+            return tuple(nhwc(f) for f in feats)
 
     def _anchors(self, feats) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
         """All levels' anchors (N, 4) on the maps' device, and the sizes."""
@@ -354,43 +363,46 @@ class FasterRCNN(nn.Module):
         base_dense_head.py:132). ``u``: the (B, N) anchor-sampling
         priorities, else drawn from ``generator``. Proposals are data:
         no gradient flows through them."""
-        cfg = self.config
-        B = feats[0].shape[0]
-        # sparse loss: the dense head runs forward only (its maps feed the
-        # proposals); the loss-path logits are re-evaluated at the sampled
-        # anchors below
-        sparse = with_loss and cfg.rpn_sparse_loss
-        fused = cfg.rpn_fused_head and (
-            sparse or (not with_loss and B <= cfg.infer_fused_max_batch))
-        head_in = tuple(f.detach() for f in feats) if sparse else feats
-        cls_maps, reg_maps = self.rpn_head(head_in, fused=fused)
-        anchors, sizes = self._anchors(feats)
-        A = cfg.num_base_priors
-        cls_flat = torch.cat([m.reshape(B, -1) for m in cls_maps], dim=1).float()
-        reg_flat = torch.cat([m.reshape(B, -1, 4) for m in reg_maps], dim=1).float()
-        level_sizes = [h * w * A for h, w in sizes]
+        with span("rpn"):
+            cfg = self.config
+            B = feats[0].shape[0]
+            # sparse loss: the dense head runs forward only (its maps feed the
+            # proposals); the loss-path logits are re-evaluated at the sampled
+            # anchors below
+            sparse = with_loss and cfg.rpn_sparse_loss
+            fused = cfg.rpn_fused_head and (
+                sparse or (not with_loss and B <= cfg.infer_fused_max_batch))
+            head_in = tuple(f.detach() for f in feats) if sparse else feats
+            cls_maps, reg_maps = self.rpn_head(head_in, fused=fused)
+            anchors, sizes = self._anchors(feats)
+            A = cfg.num_base_priors
+            cls_flat = torch.cat([m.reshape(B, -1) for m in cls_maps], dim=1).float()
+            reg_flat = torch.cat([m.reshape(B, -1, 4) for m in reg_maps], dim=1).float()
+            level_sizes = [h * w * A for h, w in sizes]
 
-        losses = {}
-        if with_loss:
-            dev = cls_flat.device
-            valid = self._anchor_valid(sizes, img_shape.to(dev))
-            assigned, _, tgt = rpn_assign_targets(
-                anchors, gt.boxes.to(dev), gt.valid.to(dev), valid,
-                cfg.rpn_pos_iou_thr, cfg.rpn_neg_iou_thr, cfg.rpn_min_pos_iou,
-            )
-            u = self._priorities(u, assigned.shape, generator, dev)
-            pos, neg = random_sample_masks(assigned, cfg.rpn_num, cfg.rpn_pos_fraction, u)
-            label_w = (pos | neg).float()
-            # avg_factor over the whole (global) batch, as in JAX
-            avg = global_avg_factor(label_w.sum())
-            if sparse:
-                cls_s, reg_s, pos_s, w_s, tgt_s = self._rpn_sparse_logits(
-                    feats, pos, neg, tgt, level_sizes)
-                losses["loss_rpn_cls"] = weighted_sigmoid_bce(cls_s, pos_s, w_s, avg)
-                losses["loss_rpn_bbox"] = weighted_l1(reg_s, tgt_s, pos_s[..., None], avg)
-            else:
-                losses["loss_rpn_cls"] = weighted_sigmoid_bce(cls_flat, pos.float(), label_w, avg)
-                losses["loss_rpn_bbox"] = weighted_l1(reg_flat, tgt, pos[..., None].float(), avg)
+            losses = {}
+            if with_loss:
+                dev = cls_flat.device
+                valid = self._anchor_valid(sizes, img_shape.to(dev))
+                assigned, _, tgt = rpn_assign_targets(
+                    anchors, gt.boxes.to(dev), gt.valid.to(dev), valid,
+                    cfg.rpn_pos_iou_thr, cfg.rpn_neg_iou_thr, cfg.rpn_min_pos_iou,
+                )
+                u = self._priorities(u, assigned.shape, generator, dev)
+                pos, neg = random_sample_masks(assigned, cfg.rpn_num, cfg.rpn_pos_fraction, u)
+                label_w = (pos | neg).float()
+                # avg_factor over the whole (global) batch, as in JAX
+                avg = global_avg_factor(label_w.sum())
+                if sparse:
+                    cls_s, reg_s, pos_s, w_s, tgt_s = self._rpn_sparse_logits(
+                        feats, pos, neg, tgt, level_sizes)
+                    losses["loss_rpn_cls"] = weighted_sigmoid_bce(cls_s, pos_s, w_s, avg)
+                    losses["loss_rpn_bbox"] = weighted_l1(reg_s, tgt_s, pos_s[..., None], avg)
+                else:
+                    losses["loss_rpn_cls"] = weighted_sigmoid_bce(
+                        cls_flat, pos.float(), label_w, avg)
+                    losses["loss_rpn_bbox"] = weighted_l1(
+                        reg_flat, tgt, pos[..., None].float(), avg)
 
         return self._rpn_proposals_from_maps(cls_flat.detach(), reg_flat.detach(), level_sizes,
                                              anchors, img_shape, losses, B)
@@ -448,41 +460,42 @@ class FasterRCNN(nn.Module):
     @torch.no_grad()
     def _rpn_proposals_from_maps(self, cls_flat, reg_flat, level_sizes, anchors,
                                  img_shape, losses, B):
-        cfg = self.config
-        if cfg.rpn_nms_impl not in ("auto", "matrix", "pallas", "xla"):
-            raise ValueError(f"unknown rpn_nms_impl {cfg.rpn_nms_impl!r}")
-        shape = img_shape.to(device=cls_flat.device, dtype=torch.float32)
-        max_shape = (shape[:, 0].view(B, 1, 1), shape[:, 1].view(B, 1, 1))
-        boxes_l, scores_l, lvl_l = [], [], []
-        off = 0
-        for li, n_l in enumerate(level_sizes):
-            s = torch.sigmoid(cls_flat[:, off:off + n_l])
-            d = reg_flat[:, off:off + n_l]
-            a = anchors[off:off + n_l]
-            k = min(cfg.rpn_nms_pre, n_l)
-            top_s, top_i = top_k(s, k)
-            sel_d = torch.gather(d, 1, top_i[..., None].expand(B, k, 4))
-            boxes_l.append(delta2bbox(a[top_i], sel_d, max_shape=max_shape))
-            scores_l.append(top_s)
-            lvl_l.append(torch.full((B, k), li, dtype=torch.int32, device=cls_flat.device))
-            off += n_l
-        boxes = torch.cat(boxes_l, dim=1)
-        scores = torch.cat(scores_l, dim=1)
-        lvls = torch.cat(lvl_l, dim=1)
-        wh_ok = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
-        nms_fn = batched_nms_matrix if cfg.rpn_nms_impl == "matrix" else batched_nms
-        keep_idx, p_valid = nms_fn(boxes, scores, lvls, wh_ok, cfg.rpn_nms_iou,
-                                   cfg.rpn_max_per_img)
-        keep = keep_idx.long()
-        p_boxes = torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4))
-        p_scores = torch.gather(scores, 1, keep)
-        proposals = InstanceArray(
-            boxes=p_boxes,
-            labels=torch.zeros(p_boxes.shape[:2], dtype=torch.int32, device=p_boxes.device),
-            valid=p_valid,
-            scores=p_scores,
-        )
-        return losses, proposals
+        with span("proposals"):
+            cfg = self.config
+            if cfg.rpn_nms_impl not in ("auto", "matrix", "pallas", "xla"):
+                raise ValueError(f"unknown rpn_nms_impl {cfg.rpn_nms_impl!r}")
+            shape = img_shape.to(device=cls_flat.device, dtype=torch.float32)
+            max_shape = (shape[:, 0].view(B, 1, 1), shape[:, 1].view(B, 1, 1))
+            boxes_l, scores_l, lvl_l = [], [], []
+            off = 0
+            for li, n_l in enumerate(level_sizes):
+                s = torch.sigmoid(cls_flat[:, off:off + n_l])
+                d = reg_flat[:, off:off + n_l]
+                a = anchors[off:off + n_l]
+                k = min(cfg.rpn_nms_pre, n_l)
+                top_s, top_i = top_k(s, k)
+                sel_d = torch.gather(d, 1, top_i[..., None].expand(B, k, 4))
+                boxes_l.append(delta2bbox(a[top_i], sel_d, max_shape=max_shape))
+                scores_l.append(top_s)
+                lvl_l.append(torch.full((B, k), li, dtype=torch.int32, device=cls_flat.device))
+                off += n_l
+            boxes = torch.cat(boxes_l, dim=1)
+            scores = torch.cat(scores_l, dim=1)
+            lvls = torch.cat(lvl_l, dim=1)
+            wh_ok = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
+            nms_fn = batched_nms_matrix if cfg.rpn_nms_impl == "matrix" else batched_nms
+            keep_idx, p_valid = nms_fn(boxes, scores, lvls, wh_ok, cfg.rpn_nms_iou,
+                                       cfg.rpn_max_per_img)
+            keep = keep_idx.long()
+            p_boxes = torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4))
+            p_scores = torch.gather(scores, 1, keep)
+            proposals = InstanceArray(
+                boxes=p_boxes,
+                labels=torch.zeros(p_boxes.shape[:2], dtype=torch.int32, device=p_boxes.device),
+                valid=p_valid,
+                scores=p_scores,
+            )
+            return losses, proposals
 
     # ------------------------------------------------------------------
     def _sample_rois(self, proposals: InstanceArray, gt: InstanceArray, u, u2):
@@ -557,18 +570,19 @@ class FasterRCNN(nn.Module):
         hold ``roi``/``roi2``, (B, G + P) each, else they are drawn from
         ``generator`` in that order. Every family takes these arguments;
         ``img_shape`` (B, 2) is read by the cascade's refinement only."""
-        p = priorities or {}
-        B, P = proposals.boxes.shape[:2]
-        dev = proposals.boxes.device
-        shape = (B, gt.boxes.shape[1] + P)
-        u = self._priorities(p.get("roi"), shape, generator, dev)
-        u2 = self._priorities(p.get("roi2"), shape, generator, dev)
-        gt = gt.to(dev)
-        rois, batch_idx, labels, valid, pos, tgt = self._sample_rois(proposals, gt, u, u2)
-        losses = self._roi_losses(feats, rois, batch_idx, labels, valid, pos, tgt, gt)
-        if replay_feats is not None:
-            losses["replay_loss_cls"] = self.replay_loss(replay_feats, replay_labels)
-        return losses
+        with span("roi"):
+            p = priorities or {}
+            B, P = proposals.boxes.shape[:2]
+            dev = proposals.boxes.device
+            shape = (B, gt.boxes.shape[1] + P)
+            u = self._priorities(p.get("roi"), shape, generator, dev)
+            u2 = self._priorities(p.get("roi2"), shape, generator, dev)
+            gt = gt.to(dev)
+            rois, batch_idx, labels, valid, pos, tgt = self._sample_rois(proposals, gt, u, u2)
+            losses = self._roi_losses(feats, rois, batch_idx, labels, valid, pos, tgt, gt)
+            if replay_feats is not None:
+                losses["replay_loss_cls"] = self.replay_loss(replay_feats, replay_labels)
+            return losses
 
     def _roi_losses(self, feats, rois, batch_idx, labels, valid, pos, tgt,
                     gt: InstanceArray) -> Dict[str, torch.Tensor]:
@@ -627,23 +641,25 @@ class FasterRCNN(nn.Module):
         (standard_roi_replay_head.py:73-104), over the columns both heads
         have active: ``[:task_split[max(task_id - 1, 1)]] ++ [background]``
         (detector.py:621-639)."""
-        cls, _ = self.bbox_forward(replay_feats)
-        pre = self.config.task_split[max(self.config.task_id - 1, 1)]
-        s = torch.cat([cls[:, :pre], cls[:, -1:]], dim=-1)
-        t = torch.cat([teacher_cls[:, :pre], teacher_cls[:, -1:]], dim=-1)
-        return torch.mean(torch.square(s - t))
+        with span("replay"):
+            cls, _ = self.bbox_forward(replay_feats)
+            pre = self.config.task_split[max(self.config.task_id - 1, 1)]
+            s = torch.cat([cls[:, :pre], cls[:, -1:]], dim=-1)
+            t = torch.cat([teacher_cls[:, :pre], teacher_cls[:, -1:]], dim=-1)
+            return torch.mean(torch.square(s - t))
 
     def replay_loss(self, replay_feats: torch.Tensor, replay_labels: torch.Tensor) -> torch.Tensor:
         """RePRE prototype replay (standard_roi_replay_head.py:468-501): the
         prototypes' logits over ``[:task_split[task_id]] ++ [background]``,
         and the cross-entropy of their SOFTMAX, a softmax taken twice as
         the reference takes it (it changes the gradients)."""
-        cls_score, _ = self.bbox_head(replay_feats.to(self.dtype))
-        cls_score = cls_score.float()
-        pre = self.config.task_split[self.config.task_id]
-        sliced = torch.cat([cls_score[:, :pre], cls_score[:, -1:]], dim=-1)
-        logp = torch.log_softmax(torch.softmax(sliced, dim=-1), dim=-1)
-        return -torch.gather(logp, 1, replay_labels.long()[:, None]).mean()
+        with span("replay"):
+            cls_score, _ = self.bbox_head(replay_feats.to(self.dtype))
+            cls_score = cls_score.float()
+            pre = self.config.task_split[self.config.task_id]
+            sliced = torch.cat([cls_score[:, :pre], cls_score[:, -1:]], dim=-1)
+            logp = torch.log_softmax(torch.softmax(sliced, dim=-1), dim=-1)
+            return -torch.gather(logp, 1, replay_labels.long()[:, None]).mean()
 
     def loss(self, batch: DetBatch, generator=None,
              priorities: Optional[Dict[str, torch.Tensor]] = None,
@@ -670,55 +686,57 @@ class FasterRCNN(nn.Module):
     @torch.no_grad()
     def predict(self, batch: DetBatch, rescale: bool = True) -> InstanceArray:
         """Normalized images → padded detections (max_per_img per image)."""
-        feats = self.extract_feat(batch.images, inference=True)
-        _, proposals = self.rpn_loss_and_proposals(feats, batch.gt, batch.img_shape,
-                                                   with_loss=False)
-        return self._predict_from_proposals(feats, proposals, batch, rescale)
+        with span("predict"):
+            feats = self.extract_feat(batch.images, inference=True)
+            _, proposals = self.rpn_loss_and_proposals(feats, batch.gt, batch.img_shape,
+                                                       with_loss=False)
+            return self._predict_from_proposals(feats, proposals, batch, rescale)
 
     def _predict_from_proposals(self, feats, proposals: InstanceArray, batch: DetBatch,
                                 rescale: bool = True) -> InstanceArray:
         """RoI-stage predict on given proposals (StandardRoIHead.predict +
         bbox_head.py:427), batched over images."""
-        cfg = self.config
-        nc = cfg.num_classes
-        B, R = proposals.boxes.shape[:2]
-        dev = proposals.boxes.device
-        rois = proposals.boxes.reshape(-1, 4)
-        batch_idx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(R)
-        cls_score, bbox_pred = self._roi_head_forward(self._roi_feats(feats, rois, batch_idx))
-        cls_score = cls_score.float().reshape(B, R, -1)
-        bbox_pred = bbox_pred.float().reshape(B, R, -1)
+        with span("roi"):
+            cfg = self.config
+            nc = cfg.num_classes
+            B, R = proposals.boxes.shape[:2]
+            dev = proposals.boxes.device
+            rois = proposals.boxes.reshape(-1, 4)
+            batch_idx = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(R)
+            cls_score, bbox_pred = self._roi_head_forward(self._roi_feats(feats, rois, batch_idx))
+            cls_score = cls_score.float().reshape(B, R, -1)
+            bbox_pred = bbox_pred.float().reshape(B, R, -1)
 
-        shape = batch.img_shape.to(device=dev, dtype=torch.float32)
-        max_shape = (shape[:, 0].view(B, 1, 1), shape[:, 1].view(B, 1, 1))
-        boxes = delta2bbox(proposals.boxes, bbox_pred, stds=cfg.rcnn_target_stds,
-                           max_shape=max_shape).reshape(B, R, nc, 4)
-        if rescale:
-            scale = batch.scale_factor.to(device=dev, dtype=torch.float32)
-            boxes = boxes / torch.cat([scale, scale], dim=1)[:, None, None, :]
-        probs = torch.softmax(cls_score, dim=-1)[..., :nc]
-        flat_boxes = boxes.reshape(B, -1, 4)
-        flat_scores = probs.reshape(B, -1)
-        flat_labels = torch.arange(nc, dtype=torch.int32, device=dev).repeat(B, R)
-        ok = (flat_scores > cfg.score_thr) & proposals.valid.repeat_interleave(nc, dim=1)
-        # multiclass NMS (bbox_nms.py:12): greedy (the kernel), or soft-NMS
-        # with its decayed scores (detector.py:739-752 in JAX)
-        if cfg.nms_type == "soft_nms":
-            keep_idx, dv, scores = batched_soft_nms(
-                flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou, cfg.max_per_img,
-                sigma=cfg.soft_nms_sigma, min_score=cfg.soft_nms_min_score,
-                method=cfg.soft_nms_method)
-        else:
-            keep_idx, dv = batched_nms(flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou,
-                                       cfg.max_per_img)
-            scores = None
-        keep = keep_idx.long()
-        return InstanceArray(
-            boxes=torch.gather(flat_boxes, 1, keep[..., None].expand(-1, -1, 4)),
-            labels=torch.gather(flat_labels, 1, keep),
-            valid=dv,
-            scores=torch.gather(flat_scores, 1, keep) if scores is None else scores,
-        )
+            shape = batch.img_shape.to(device=dev, dtype=torch.float32)
+            max_shape = (shape[:, 0].view(B, 1, 1), shape[:, 1].view(B, 1, 1))
+            boxes = delta2bbox(proposals.boxes, bbox_pred, stds=cfg.rcnn_target_stds,
+                               max_shape=max_shape).reshape(B, R, nc, 4)
+            if rescale:
+                scale = batch.scale_factor.to(device=dev, dtype=torch.float32)
+                boxes = boxes / torch.cat([scale, scale], dim=1)[:, None, None, :]
+            probs = torch.softmax(cls_score, dim=-1)[..., :nc]
+            flat_boxes = boxes.reshape(B, -1, 4)
+            flat_scores = probs.reshape(B, -1)
+            flat_labels = torch.arange(nc, dtype=torch.int32, device=dev).repeat(B, R)
+            ok = (flat_scores > cfg.score_thr) & proposals.valid.repeat_interleave(nc, dim=1)
+            # multiclass NMS (bbox_nms.py:12): greedy (the kernel), or soft-NMS
+            # with its decayed scores (detector.py:739-752 in JAX)
+            if cfg.nms_type == "soft_nms":
+                keep_idx, dv, scores = batched_soft_nms(
+                    flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou, cfg.max_per_img,
+                    sigma=cfg.soft_nms_sigma, min_score=cfg.soft_nms_min_score,
+                    method=cfg.soft_nms_method)
+            else:
+                keep_idx, dv = batched_nms(flat_boxes, flat_scores, flat_labels, ok, cfg.nms_iou,
+                                           cfg.max_per_img)
+                scores = None
+            keep = keep_idx.long()
+            return InstanceArray(
+                boxes=torch.gather(flat_boxes, 1, keep[..., None].expand(-1, -1, 4)),
+                labels=torch.gather(flat_labels, 1, keep),
+                valid=dv,
+                scores=torch.gather(flat_scores, 1, keep) if scores is None else scores,
+            )
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..ops.roi_align_cuda import multilevel_roi_align
 from ..structures.boxes import bbox_overlaps
 from ..structures.sample import DetBatch, InstanceArray
+from ..utils.spans import span
 from .detector import DetectorConfig, FasterRCNN
 from .fpn import ConvModule
 from .layers import CovConv, nchw, nhwc
@@ -242,7 +243,8 @@ class MaskRCNN(MaskBranch, FasterRCNN):
         carry masks."""
         if gt.masks is None:
             return {}
-        return {"loss_mask": self._mask_loss(feats, rois, batch_idx, labels, pos, gt)}
+        with span("mask"):
+            return {"loss_mask": self._mask_loss(feats, rois, batch_idx, labels, pos, gt)}
 
     @torch.no_grad()
     def predict(self, batch: DetBatch, rescale: bool = True) -> InstanceArray:
